@@ -7,13 +7,18 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the port's CUDA kernels from csrc/ (into gpudrive_lab_torch/_build/),
 holds each kernel against its plain PyTorch version at the shapes of the main
-path, drives the main path (a 91-step late-fusion policy rollout over the 512
-worlds of data/pool_v3 with 128 agent rows, then 10 steps of the padded
-2048-road tiled path), checks the outputs, and prints:
+path, drives the main paths (a 91-step late-fusion policy rollout over the 512
+worlds of data/pool_v3 with 128 agent rows; 10 steps of the padded 2048-road
+tiled path; PPO training over the same 512 worlds through build_trainer, with
+a checkpoint round trip and one dense iteration), checks the outputs, and
+prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times, the rollout's ms per step split into
-    simulator and policy, agent-steps/s (steps x created agents / wall time);
+    simulator and policy, agent-steps/s (steps x created agents / wall time),
+    per train iteration the rollout, GAE and update ms and train samples/s
+    (controlled-agent samples consumed / wall time), and the device-time
+    breakdown of one profiled train iteration;
   * one JSON line with every kernel (name, route, source, the TPU kernel it
     replaces, launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
     bound_by, library_ms);
@@ -40,6 +45,8 @@ PEAK_FP32 = 67e12
 SEED = 0
 STEPS = 91
 TILED_STEPS = 10
+TRAIN_ITERS = 3  # timed PPO iterations, after one warm-up
+DENSE_WORLDS = 64  # worlds of the dense (uncompacted) training iteration
 
 
 class CheckFailed(Exception):
@@ -70,6 +77,246 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k4_check(ppo, env, traj, gen) -> dict:
+    """K4 against its plain version at the update's minibatch shapes: the
+    partner and road slices, taken in place, of the observation that the
+    update recomputes for one minibatch (rollout_len / num_minibatches
+    steps of the flat compacted rows), with the argmax K3 gives on them
+    and a random pooled cotangent."""
+    import torch
+
+    from gpudrive_lab_torch.env.env_torch import flat_observation
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    cfg = ppo.config
+    cidx = ppo.ctrl_slots(env.scene)
+    states = traj.env_state
+    obs = torch.stack([
+        flat_observation(
+            env.scene,
+            type(states)(**{f: getattr(states, f)[t]
+                            for f in states.__dataclass_fields__}),
+            env.params, env.spec, env.reward_weights, cidx)[0]
+        for t in range(cfg.rollout_len // cfg.num_minibatches)
+    ]).reshape(-1, 3368)
+    policy = ppo.policy
+    blocks = {
+        "partner": (policy.partner_embed,
+                    obs[:, 6:768].unflatten(-1, (127, 6))),
+        "road": (policy.road_map_embed, obs[:, 768:].unflatten(-1, (200, 13))),
+    }
+    k4 = dict(name="K4 fused_embed_pool_bwd", route="cuda",
+              source="gpudrive_lab_torch/csrc/fused_embed_bwd.cu",
+              replaces="gpudrive_lab_tpu/networks/fused_embed.py:251",
+              library_ms=None, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+              max_abs_err=0.0,
+              parity="each gradient's max abs err <= 1e-4 x its max abs "
+                     "value; two launches bitwise equal")
+    worst_bound = {}
+    with torch.no_grad():
+        for bname, (emb, x) in blocks.items():
+            lin1, ln, _, _, lin2 = emb
+            w = (lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
+                 lin2.weight.t().contiguous(), lin2.bias)
+            _, arg = fe.fused_embed_pool_fwd(x, *w, "tanh")
+            dpool = torch.randn(arg.shape, generator=gen, device=x.device)
+            got = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh")
+            again = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh")
+            want = fe.reference_embed_pool_bwd(x, *w, arg, dpool, "tanh")
+            err, rel = 0.0, 0.0
+            for gname, a, b, c in zip(("dw1", "db1", "dg", "dbe", "dw2",
+                                       "db2"), got, again, want):
+                check(torch.equal(a, b), f"K4 {bname} {gname}: two launches "
+                      f"differ")
+                e = float((a - c).abs().max())
+                err = max(err, e)
+                rel = max(rel, e / max(float(c.abs().max()), 1e-30))
+            del want
+            check(rel <= 1e-4, f"K4 {bname}: max abs err {rel:.3g} of the "
+                  f"gradient's max abs value")
+            B, Ent, F = x.shape
+            s = arg.sort(dim=1).values
+            winners = B + int((s[:, 1:] != s[:, :-1]).sum())
+            ms = time_ms(lambda: fe.fused_embed_pool_bwd(
+                x, *w, arg, dpool, "tanh"), 20)
+            plain = time_ms(lambda: fe.reference_embed_pool_bwd(
+                x, *w, arg, dpool, "tanh"), 3, warmup=1)
+            n_out = F * 64 + 64 * 64 + 4 * 64
+            bms, by = bound(4 * (winners * F + 2 * B * 64 + 2 * n_out),
+                            fe.bwd_flops(F, B, winners))
+            k4["ms"] += ms
+            k4["plain_ms"] += plain
+            k4["bound_ms"] += bms
+            k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            worst_bound[bname] = by
+            print(f"[K4] {bname} [{B},{Ent},{F}]: {winners / B:.1f} winners "
+                  f"per row, max abs err {err:.3g} ({rel:.3g} of the "
+                  f"largest gradient); kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    k4["bound_by"] = worst_bound["road"]
+    n = obs.shape[0]
+    k4["shape"] = (f"partner [{n},127,6] + road [{n},200,13] per "
+                   "minibatch backward")
+    return k4
+
+
+def train_phase(env, scenes, gen) -> dict:
+    """PPO on the slice's 512 worlds through build_trainer: one warm-up
+    iteration, K4 against its plain version, TRAIN_ITERS timed iterations
+    with the launch counts read around them, one iteration under
+    torch.profiler, a checkpoint round trip, and one dense iteration on the
+    first DENSE_WORLDS worlds.  Returns K4's kernel record."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from torch.profiler import record_function
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+    from gpudrive_lab_torch.networks.late_fusion import LateFusionPolicy
+    from gpudrive_lab_torch.ppo.ppo import PPOConfig
+    from gpudrive_lab_torch.ppo.train import (
+        build_trainer,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from gpudrive_lab_torch.rollout import slice_env
+    from gpudrive_lab_torch.utils.profiling import (
+        device_breakdown,
+        device_trace,
+    )
+
+    n_ctrl = int(env.scene.agents.controlled.sum())
+    cfg = PPOConfig(rollout_len=32, update_epochs=4, num_minibatches=4,
+                    fused_embed=True, compact_mode="flat",
+                    compact=-(-n_ctrl // 64) * 64)
+    per_iter = 2 * cfg.update_epochs * cfg.num_minibatches
+    ppo, carry, fresh, _ = build_trainer(env, cfg, seed=SEED)
+    rw = env.reward_weights
+    print(f"[train] {env.num_worlds} worlds, {n_ctrl} controlled agents, "
+          f"flat compaction to {cfg.compact} rows; T={cfg.rollout_len}, "
+          f"{cfg.update_epochs} epochs x {cfg.num_minibatches} minibatches, "
+          f"fused_embed, remat_obs={cfg.remat_obs}")
+    # warm-up iteration; its trajectory feeds the kernel check
+    carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
+    global_step = float(ppo.update(env.scene, carry, traj, rw)["samples"])
+    k4 = k4_check(ppo, env, traj, gen)
+    del traj
+
+    before = [p.detach().clone() for p in ppo.policy.parameters()]
+    torch.cuda.synchronize()
+    fe.fused_embed_pool_bwd.launches = 0
+    fe.fused_embed_pool_fwd.launches = 0
+    rates = []
+    for it in range(TRAIN_ITERS):
+        n0 = fe.fused_embed_pool_bwd.launches
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.time()
+        # the iteration never waits on the card: a synchronizing operation
+        # inside it raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ev[0].record()
+            carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
+            ev[1].record()
+            batch = ppo.prepare(env.scene, carry, traj, rw)
+            ev[2].record()
+            losses = ppo.learn(env.scene, batch, traj, rw)
+            ev[3].record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        samples = float(ppo.episode_metrics(traj)["samples"])
+        check(samples == float(traj.mask.sum()) > 0,
+              f"iteration {it}: samples {samples} != mask sum")
+        loss = {k: v.mean().item() for k, v in losses.items()}
+        check(all(torch.isfinite(v).all() for v in losses.values()),
+              f"iteration {it}: a loss is not finite: {loss}")
+        n4 = fe.fused_embed_pool_bwd.launches - n0
+        check(n4 == per_iter, f"iteration {it}: K4 launched {n4} times, "
+              f"expected {per_iter}")
+        global_step += samples
+        rates.append(samples / wall)
+        print(f"[train] iteration {it}: rollout {ev[0].elapsed_time(ev[1]):.3f}"
+              f" ms, gae {ev[1].elapsed_time(ev[2]):.3f} ms, update "
+              f"{ev[2].elapsed_time(ev[3]):.3f} ms (CUDA events); wall "
+              f"{wall * 1e3:.3f} ms, {samples:.0f} samples, train samples/s "
+              f"{samples / wall:.1f}; K4 launches {n4}; "
+              + ", ".join(f"{k} {v:.5f}" for k, v in loss.items()))
+    k4["launches"] = fe.fused_embed_pool_bwd.launches
+    print(f"[train] {TRAIN_ITERS} iterations: mean train samples/s "
+          f"{sum(rates) / len(rates):.1f}; launches K4 {k4['launches']}, "
+          f"K3 {fe.fused_embed_pool_fwd.launches}")
+
+    # one more iteration under torch.profiler: where the device time goes
+    phases = ("rollout", "gae", "update")
+    with device_trace() as prof:
+        t0 = time.time()
+        with record_function("rollout"):
+            carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
+        with record_function("gae"):
+            batch = ppo.prepare(env.scene, carry, traj, rw)
+        with record_function("update"):
+            ppo.learn(env.scene, batch, traj, rw)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    global_step += float(traj.mask.sum())
+    busy, by_name, by_phase = device_breakdown(prof, phases)
+    busy /= 1e3
+    print(f"[train profile] wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"(busy share {busy / wall:.3f}), "
+          f"{sum(c for _, c in by_name.values())} device activities; device "
+          + ", ".join(f"{p} {us / 1e3:.3f} ms" for p, us in by_phase.items()))
+    for name, (us, cnt) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:12]:
+        print(f"[train profile] {us / 1e3:10.3f} ms {cnt:6d}x  {name}")
+    after = list(ppo.policy.parameters())
+    check(all(bool(torch.isfinite(p).all()) for p in after),
+          "a parameter is not finite after training")
+    check(any(not torch.equal(a, b) for a, b in zip(after, before)),
+          "training did not change the parameters")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, ppo.policy, ppo.optimizer, TRAIN_ITERS + 1,
+                        int(global_step))
+        other = LateFusionPolicy(ppo.policy.config, device=env.device)
+        opt = torch.optim.Adam(other.parameters(), lr=cfg.learning_rate,
+                               eps=1e-5)
+        step = load_checkpoint(tmp, other, opt)
+    check(step == int(global_step), f"checkpoint global step {step}")
+    for k, v in ppo.policy.state_dict().items():
+        check(torch.equal(v, other.state_dict()[k]), f"checkpoint: {k}")
+    mine, theirs = ppo.optimizer.state_dict(), opt.state_dict()
+    for i, st in mine["state"].items():
+        for k, v in st.items():
+            check(torch.equal(v, theirs["state"][i][k]),
+                  f"checkpoint: Adam {k} of parameter {i}")
+    print(f"[train] checkpoint round trip: {len(mine['state'])} parameters "
+          f"and their Adam state equal, global step {step}")
+
+    denv = slice_env(scenes[:DENSE_WORLDS], device=env.device)
+    dppo, dcarry, dfresh, dtrain = build_trainer(
+        denv, dataclasses.replace(cfg, compact=0), seed=SEED)
+    n0 = fe.fused_embed_pool_bwd.launches
+    t0 = time.time()
+    dcarry, dm = dtrain(denv.scene, dcarry, dfresh, denv.reward_weights)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    dm = {k: float(v) for k, v in dm.items()}
+    check(all(v == v and abs(v) != float("inf") for v in dm.values()),
+          f"dense iteration: a metric is not finite: {dm}")
+    check(dm["samples"] > 0, "dense iteration: no samples")
+    n4 = fe.fused_embed_pool_bwd.launches - n0
+    check(n4 == per_iter, f"dense iteration: K4 launched {n4} times")
+    print(f"[train] dense iteration, {DENSE_WORLDS} worlds x "
+          f"{denv.max_agent_count} rows: {wall * 1e3:.3f} ms wall (first "
+          f"iteration of this trainer), {dm['samples']:.0f} samples, "
+          f"pg_loss {dm['pg_loss']:.5f}, v_loss {dm['v_loss']:.5f}; "
+          f"K4 launches {n4}")
+    return k4
 
 
 def main() -> int:
@@ -327,8 +574,12 @@ def main() -> int:
           f"{fe.fused_embed_pool_fwd.launches}")
     check(k1["launches"] > 0, "the tiled rollout did not launch K1")
     check(bool(torch.isfinite(tres.rewards).all()), "tiled rewards not finite")
+    del tenv, tres
 
-    # ---- phase 5: the card's path against the CPU path, small input ------
+    # ---- phase 5: the training path, PPO over the 512 worlds -------------
+    results["K4"] = train_phase(env, scenes, gen)
+
+    # ---- phase 6: the card's path against the CPU path, small input ------
     small = scenes[:4]
     genv = slice_env(small, device=dev)
     cenv = slice_env(small, device="cpu")
@@ -352,7 +603,7 @@ def main() -> int:
           f"(obs max abs diff {worst:.3g})")
 
     line = {"kernels": []}
-    for key in ("K1", "K2", "K3"):
+    for key in ("K1", "K2", "K3", "K4"):
         r = results[key]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -57,9 +57,14 @@ def _movement_system(
     f1 = torch.ones((), dtype=torch.float32, device=valid.device)
     i0 = torch.zeros((), dtype=torch.int32, device=valid.device)
     i1 = torch.ones((), dtype=torch.int32, device=valid.device)
-    pad_xy = torch.tensor(C.PADDING_POSITION, dtype=torch.float32,
-                          device=valid.device)
-    pad_z = torch.tensor(C.PADDING_Z, dtype=torch.float32, device=valid.device)
+    # filled on the device: torch.tensor(..., device=cuda) would copy from
+    # the host and wait for the stream on every step
+    pad_xy = torch.stack([
+        torch.full((), v, dtype=torch.float32, device=valid.device)
+        for v in C.PADDING_POSITION
+    ])
+    pad_z = torch.full((), torch.finfo(torch.float32).max,  # C.PADDING_Z
+                       dtype=torch.float32, device=valid.device)
 
     done = state.done
     collided = state.collided

@@ -29,6 +29,7 @@ _COMMON = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 FLAGS = {
     "agent_road": ["--fmad=false"],
     "fused_embed": [],
+    "fused_embed_bwd": [],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

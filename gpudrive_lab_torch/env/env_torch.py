@@ -5,11 +5,14 @@ The simulator is the step of gpudrive_lab_torch.core on tensors that stay on
 the env's device; a per-world reset is a masked select.  The env keeps the
 Scene, the SimState, the per-world clocks and the reward weights.
 
+``init_steps`` > 0 warms every reset up with that many steps of expert log
+playback (``expert_log_playback``), as the JAX env does.
+
 Not ported yet (they raise if a config asks for them): lidar, BEV and camera
-observations, VBD, stacked observations, expert log-playback warm-up
-(``init_steps``), reward conditioning (its weights are resampled on the host
-at every reset), ``swap_data_batch``, ``remove_agents_by_id`` and the
-dataset loader; the env takes ``scene_paths``.
+observations, VBD, stacked observations, reward conditioning (its weights are
+resampled on the host at every reset), ``swap_data_batch``,
+``remove_agents_by_id`` and the dataset loader; the env takes
+``scene_paths``.
 """
 
 from __future__ import annotations
@@ -61,13 +64,25 @@ def flat_observation(
     params: Params,
     spec: ObsSpec,
     reward_weights: torch.Tensor,
+    ego_idx=None,
+    split: bool = False,
 ):
     """Flattened per-agent policy observation and masks.
 
     Layout (reference: gpudrive/env/env_torch.py:1172-1216):
     [ego(6[+3]), partner(127*6), road(200*13)], normalised when norm_obs.
     Returns (obs [W, A, D], partner_mask [W, A, 127] int, road_mask
-    [W, A, K] bool); a mask is None when its block is off."""
+    [W, A, K] bool); a mask is None when its block is off.
+
+    ego_idx restricts the ego axis to the selected agents: [W, C] slots
+    per world (results [W, C, ...]) or a flat (w_idx [N], a_idx [N]) pair
+    (results [N, ...]), the PPO learner's compaction.  ``split=True``
+    returns the obs as the tuple (ego [.., E], partner [.., 127, 6],
+    road [.., 200, 13]) that LateFusionPolicy also accepts, instead of the
+    concatenated vector; it needs all three classic blocks."""
+    if split and not (spec.ego_state and spec.partner_obs
+                      and spec.road_map_obs):
+        raise ValueError("split obs requires ego/partner/road all enabled")
     parts = []
     partner_mask = road_mask = None
     dev = state.pos.device
@@ -75,15 +90,14 @@ def flat_observation(
     partner = other_static = None
     if spec.partner_obs:
         partner, other_static = obsmod.partner_observations(
-            scene, state, params, with_static=True
+            scene, state, params, ego_idx, with_static=True
         )
         # Fixed flat-feature layout: 127 partner slots even when the agent
         # axis is bucketed below 128.  Pad the raw rows with "nonexistent"
         # fillers (zero features, id=-2) before normalisation.
         short = (C.MAX_AGENTS - 1) - partner.shape[-2]
         if short:
-            filler = torch.zeros(9, dtype=torch.float32, device=dev)
-            filler[8] = -2.0
+            filler = torch.where(torch.arange(9, device=dev) == 8, -2.0, 0.0)
             pad_rows = filler.expand(partner.shape[:-2] + (short, 9))
             partner = torch.cat([partner, pad_rows], dim=-2)
             other_static = torch.cat(
@@ -93,7 +107,7 @@ def flat_observation(
             )
 
     if spec.ego_state:
-        so = obsmod.self_observation(scene, state)
+        so = obsmod.self_observation(scene, state, ego_idx)
         speed = so[..., 0]
         length = so[..., 1] * C.VEHICLE_LENGTH_SCALE
         width = so[..., 2] * C.VEHICLE_LENGTH_SCALE
@@ -107,7 +121,8 @@ def flat_observation(
             gy = _minmax(gy, C.MIN_REL_GOAL_COORD, C.MAX_REL_GOAL_COORD)
         ego = torch.stack([speed, length, width, gx, gy, collided], dim=-1)
         if spec.reward_conditioned:
-            ego = torch.cat([ego, reward_weights], dim=-1)
+            ego = torch.cat(
+                [ego, obsmod._ego_take(reward_weights, ego_idx)], dim=-1)
         parts.append(ego)
 
     if spec.partner_obs:
@@ -124,10 +139,10 @@ def flat_observation(
             p_len = p_len / C.MAX_VEH_LEN
             p_wid = p_wid / C.MAX_VEH_WIDTH
         pobs = torch.stack([p_speed, p_x, p_y, p_head, p_len, p_wid], dim=-1)
-        parts.append(pobs.flatten(-2))
+        parts.append(pobs if split else pobs.flatten(-2))
 
     if spec.road_map_obs:
-        mo = obsmod.agent_map_observations(scene, state, params)
+        mo = obsmod.agent_map_observations(scene, state, params, ego_idx)
         x, y = mo[..., 0], mo[..., 1]
         d0, d1, d2 = mo[..., 2], mo[..., 3], mo[..., 4]
         heading = mo[..., 5]
@@ -143,14 +158,17 @@ def flat_observation(
         robs = torch.cat(
             [torch.stack([x, y, d0, d1, d2, heading], dim=-1), one_hot], dim=-1
         )
-        parts.append(robs.flatten(-2))
+        parts.append(robs if split else robs.flatten(-2))
         road_mask = mo[..., 7] == -1  # road_mask (env_torch.py:1258-1272)
 
-    if parts:
+    if split:
+        obs = tuple(parts)
+    elif parts:
         obs = torch.cat(parts, dim=-1)
     else:
-        W, A = scene.agents.valid.shape
-        obs = torch.zeros((W, A, 0), dtype=torch.float32, device=dev)
+        lead = (obsmod._ego_take(scene.agents.valid, ego_idx).shape
+                if ego_idx is not None else scene.agents.valid.shape)
+        obs = torch.zeros(lead + (0,), dtype=torch.float32, device=dev)
 
     if spec.partner_obs:
         # Partner mask: 0 partner / 1 static / 2 nonexistent
@@ -193,6 +211,46 @@ def shaped_rewards(
     return r
 
 
+def expert_actions(scene: Scene, model: str) -> torch.Tensor:
+    """Inverse/log actions with per-model clamps as [W, A, T, 10]
+    action-union rows (reference: env_torch.py:1445-1509)."""
+    ag = scene.agents
+    if model == "state":
+        return torch.cat(
+            [ag.traj_pos, torch.ones_like(ag.traj_pos[..., :1]),
+             ag.traj_yaw[..., None], ag.traj_vel,
+             torch.zeros(ag.traj_pos.shape[:-1] + (4,),
+                         dtype=torch.float32, device=ag.traj_pos.device)],
+            dim=-1,
+        )
+    inv = ag.traj_inv_actions[..., :3]
+    if model == "delta_local":
+        a3 = torch.stack([inv[..., 0].clamp(-6, 6), inv[..., 1].clamp(-6, 6),
+                          inv[..., 2].clamp(-torch.pi, torch.pi)], dim=-1)
+    else:  # classic | bicycle
+        a3 = torch.stack([inv[..., 0].clamp(-6, 6),
+                          inv[..., 1].clamp(-0.3, 0.3), inv[..., 2]], dim=-1)
+    return torch.cat(
+        [a3, a3.new_zeros(a3.shape[:-1] + (C.ACTION_DIM - 3,))], dim=-1)
+
+
+def expert_log_playback(scene: Scene, state: SimState,
+                        world_time_steps: torch.Tensor, params: Params,
+                        model: str, k: int):
+    """Advance ``state`` by ``k`` steps of expert log playback from
+    absolute trajectory time 0 (reference: env_torch.py:1274-1293), with
+    the world clock advancing as in ``step_dynamics``.  Shared by the env's
+    reset warm-up and the PPO trainer's auto-reset target.  Returns
+    (state, world_time_steps)."""
+    acts = expert_actions(scene, model)
+    for t in range(k):
+        state = stepmod.step(scene, state, acts[:, :, t], params)
+        any_done = ((state.done != 0) & scene.agents.valid).any(1)
+        world_time_steps = torch.where(any_done, world_time_steps,
+                                       world_time_steps + 1)
+    return state, world_time_steps
+
+
 class GPUDriveTorchEnv:
     """Batched multi-world driving env with the reference's API surface
     (reset / step_dynamics / get_obs / get_rewards / get_dones / get_infos),
@@ -212,7 +270,6 @@ class GPUDriveTorchEnv:
                 ("bev_obs", config.bev_obs),
                 ("use_vbd", config.use_vbd),
                 ("num_stack > 1", config.num_stack > 1),
-                ("init_steps > 0", config.init_steps > 0),
                 ("distance_to_vdb_trajs",
                  config.reward_type == "distance_to_vdb_trajs"),
                 ("reward_conditioned",
@@ -251,6 +308,7 @@ class GPUDriveTorchEnv:
         )
         self.state: SimState = None
         self._fresh: SimState = None
+        self._fresh_clock: torch.Tensor = None
         self.partner_mask = None
         self.road_mask = None
         self.reset()
@@ -291,11 +349,20 @@ class GPUDriveTorchEnv:
     def reset(self, env_idx_list=None):
         """(Re)generate worlds and return the observation
         (reference: env_torch.py:403-451).  ``env_idx_list`` None resets
-        every world; otherwise it lists the world indices to reset."""
+        every world; otherwise it lists the world indices to reset.  With
+        ``init_steps`` the reset worlds come back warmed up by that many
+        steps of expert log playback, their clocks at ``init_steps``."""
         if env_idx_list is None or self.state is None:
-            self._fresh = stepmod.reset(self.scene, None, self.params)
-            self.state = self._fresh
             self.world_time_steps.zero_()
+            self._fresh = stepmod.reset(self.scene, None, self.params)
+            if self.config.init_steps > 0:
+                self._fresh, self.world_time_steps = expert_log_playback(
+                    self.scene, self._fresh, self.world_time_steps,
+                    self.params, self.config.dynamics_model,
+                    self.config.init_steps,
+                )
+            self._fresh_clock = self.world_time_steps.clone()
+            self.state = self._fresh
         else:
             mask = torch.zeros(self.num_worlds, dtype=torch.bool,
                                device=self.device)
@@ -314,9 +381,7 @@ class GPUDriveTorchEnv:
         running the collision tail again on every world."""
         self.state = stepmod.select_worlds(mask, self._fresh, self.state)
         self.world_time_steps = torch.where(
-            mask, torch.zeros_like(self.world_time_steps),
-            self.world_time_steps,
-        )
+            mask, self._fresh_clock, self.world_time_steps)
 
     def step_dynamics(self, actions):
         """reference: env_torch.py:606-613.  ``actions`` is [W, A] (or

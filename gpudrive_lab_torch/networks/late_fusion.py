@@ -10,10 +10,12 @@ critic), so ``networks/convert.params_from_flax`` carries flax weights over.
 
 Numerics follow flax rather than torch's defaults: LayerNorm eps is 1e-6
 and gelu is the tanh approximation.  With ``fused_embed`` the partner and
-road blocks go through kernel K3 (networks/fused_embed.py); its backward is
-not ported yet, so that path serves inference only.  The LSTM variant, the
-bf16 compute dtype and activation rematerialisation of the JAX package come
-with the training slice.
+road blocks go through kernel K3 forward and kernel K4 backward
+(networks/fused_embed.py); with ``embed_remat`` the unfused blocks are
+recomputed in the backward pass (``torch.utils.checkpoint``) instead of
+keeping their [B, E, 64] activations.  The forward also takes the
+pre-split (ego, partner, road) tuple of ``flat_observation(split=True)``.
+The LSTM variant and the bf16 compute dtype are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.device import resolve_device
@@ -37,7 +40,11 @@ class PolicyConfig:
     ego_feat_dim: int = C.EGO_FEAT_DIM  # +3 when reward_conditioned
     max_agents: int = C.MAX_AGENTS
     top_k_roads: int = C.MAX_AGENT_MAP_OBS
-    # Route the partner/road embed+pool through kernel K3 (forward only).
+    # Recompute the unfused partner/road embed+pool in the backward pass
+    # instead of storing its [B, E, 64] activations; same gradients.
+    embed_remat: bool = False
+    # Route the partner/road embed+pool through kernels K3 (forward) and
+    # K4 (backward); d/d(obs) is not computed, the obs being data.
     fused_embed: bool = False
 
     @property
@@ -60,6 +67,10 @@ def _embed(in_dim: int, dim: int, act: str) -> nn.Sequential:
         nn.Identity(),
         nn.Linear(dim, dim),
     )
+
+
+def _embed_max(embed: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    return embed(x).max(dim=-2).values
 
 
 class LateFusionPolicy(nn.Module):
@@ -95,7 +106,9 @@ class LateFusionPolicy(nn.Module):
     def _pool(self, embed: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
         """max over the entity axis of embed(x); x [..., E, F]."""
         if not self.config.fused_embed:
-            return embed(x).max(dim=-2).values
+            if self.config.embed_remat and torch.is_grad_enabled():
+                return checkpoint(_embed_max, embed, x, use_reentrant=False)
+            return _embed_max(embed, x)
         lin1, ln, _, _, lin2 = embed
         lead = x.shape[:-2]
         pooled = fused_embed_pool(
@@ -105,18 +118,23 @@ class LateFusionPolicy(nn.Module):
         )
         return pooled.reshape(lead + (pooled.shape[-1],))
 
-    def forward(self, obs: torch.Tensor):
+    def forward(self, obs):
+        """obs [..., obs_dim], or the pre-split tuple (ego [..., E],
+        partner [..., 127, 6], road [..., 200, 13]) -> (logits, value)."""
         cfg = self.config
-        e = cfg.ego_feat_dim
-        p = (cfg.max_agents - 1) * C.PARTNER_FEAT_DIM
-        lead = obs.shape[:-1]
-        ego = obs[..., :e]
-        partner = obs[..., e:e + p].unflatten(
-            -1, (cfg.max_agents - 1, C.PARTNER_FEAT_DIM)
-        )
-        road = obs[..., e + p:].unflatten(
-            -1, (cfg.top_k_roads, C.ROAD_GRAPH_FEAT_DIM)
-        )
+        if isinstance(obs, tuple):
+            ego, partner, road = obs
+        else:
+            e = cfg.ego_feat_dim
+            p = (cfg.max_agents - 1) * C.PARTNER_FEAT_DIM
+            ego = obs[..., :e]
+            partner = obs[..., e:e + p].unflatten(
+                -1, (cfg.max_agents - 1, C.PARTNER_FEAT_DIM)
+            )
+            road = obs[..., e + p:].unflatten(
+                -1, (cfg.top_k_roads, C.ROAD_GRAPH_FEAT_DIM)
+            )
+        lead = ego.shape[:-1]
         hidden = self.shared_embed(
             torch.cat(
                 [

@@ -30,7 +30,12 @@ from gpudrive_lab_torch.networks.late_fusion import (
     PolicyConfig,
 )
 from gpudrive_lab_torch.rollout import SLICE_CONFIG, rollout
-from torch_parity import POOL_SCENES, python_scene_compiler, sorted_rows
+from torch_parity import (
+    POOL_SCENES,
+    flax_variables,
+    python_scene_compiler,
+    sorted_rows,
+)
 
 PATHS = POOL_SCENES[20:22]
 E = C.EGO_FEAT_DIM
@@ -128,28 +133,6 @@ def test_flat_observation_reward_conditioned():
     np.testing.assert_array_equal(pmask.numpy(), np.asarray(jpmask))
 
 
-def _flax_variables(seed=0, act="tanh"):
-    """A flax parameter tree of the policy, every leaf drawn with numpy:
-    kernels N(0, 1/fan_in), biases N(0, 0.1), LayerNorm scale 1 + N(0, 0.1)."""
-    shapes = jax.eval_shape(
-        lambda: FlaxPolicy(FlaxPolicyConfig(act_func=act)).init(
-            jax.random.PRNGKey(0), jnp.zeros((1, 3368)))
-    )
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        name = jax.tree_util.keystr(path)
-        if "kernel" in name:
-            v = rng.standard_normal(leaf.shape) / np.sqrt(leaf.shape[0])
-        elif "scale" in name:
-            v = 1.0 + 0.1 * rng.standard_normal(leaf.shape)
-        else:
-            v = 0.1 * rng.standard_normal(leaf.shape)
-        return v.astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(draw, shapes)
-
-
 def _policy(variables, fused, act="tanh"):
     policy = LateFusionPolicy(PolicyConfig(act_func=act, fused_embed=fused),
                               device="cpu")
@@ -159,7 +142,7 @@ def _policy(variables, fused, act="tanh"):
 
 @pytest.mark.parametrize("act", ["tanh", "gelu"])
 def test_policy_matches_flax(act):
-    variables = _flax_variables(act=act)
+    variables = flax_variables(act=act)
     rng = np.random.default_rng(2)
     obs = rng.standard_normal((16, 3368)).astype(np.float32)
     jvars = jax.tree.map(jnp.asarray, variables)
@@ -181,7 +164,7 @@ def test_slice_10_rollout_steps_match():
     dones -> reset of finished worlds, 10 times, in both packages.  Actions
     are compared on the controlled agents, the rows the dynamics read."""
     env, jenv = _envs()
-    variables = _flax_variables(seed=3)
+    variables = flax_variables(seed=3)
     policy = _policy(variables, fused=True)
     flax_policy = FlaxPolicy(FlaxPolicyConfig(fused_embed=True))
     apply = jax.jit(flax_policy.apply)

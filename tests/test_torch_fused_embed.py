@@ -16,6 +16,7 @@ from gpudrive_lab_torch.networks.fused_embed import (
     fused_embed_pool,
     fused_embed_pool_fwd,
     reference_embed_pool,
+    reference_embed_pool_bwd,
 )
 
 H = 64
@@ -81,11 +82,20 @@ def test_argmax_and_strided_rows():
 
 
 def test_backward_is_the_training_slice():
+    """The backward (K4, the training slice's kernel) runs: on CPU tensors
+    it is the plain version, with the pooled cotangent sent to the forward's
+    argmax, and x gets no gradient."""
     x, params = _inputs(3, 4, 5, 6)
     tparams = [torch.from_numpy(p).requires_grad_() for p in params]
-    out = fused_embed_pool(torch.from_numpy(x), *tparams, "tanh")
-    with pytest.raises(NotImplementedError, match="K4"):
-        out.sum().backward()
+    tx = torch.from_numpy(x).requires_grad_()
+    out = fused_embed_pool(tx, *tparams, "tanh")
+    out.sum().backward()
+    assert tx.grad is None
+    with torch.no_grad():
+        _, arg = fused_embed_pool_fwd(tx, *tparams, "tanh")
+        want = reference_embed_pool_bwd(tx, *tparams, arg, torch.ones(4, H))
+    for p, w in zip(tparams, want):
+        torch.testing.assert_close(p.grad, w)
 
 
 def test_wrapper_rejects_bad_inputs():

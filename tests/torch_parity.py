@@ -113,6 +113,124 @@ def assert_states_match(js, ts, tol=1e-3, where=""):
     assert yaw_diff(js.yaw, ts.yaw.numpy()).max() <= tol, f"yaw {where}"
 
 
+def flax_variables(seed=0, act="tanh", action_dim=91):
+    """A flax parameter tree of the late-fusion policy, every leaf drawn with
+    numpy: kernels N(0, 1/fan_in), biases N(0, 0.1), LayerNorm scale
+    1 + N(0, 0.1)."""
+    import jax
+
+    from gpudrive_lab_tpu.networks.late_fusion import (
+        LateFusionPolicy as FlaxPolicy,
+        PolicyConfig as FlaxPolicyConfig,
+    )
+
+    cfg = FlaxPolicyConfig(act_func=act, action_dim=action_dim)
+    shapes = jax.eval_shape(lambda: FlaxPolicy(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, cfg.obs_dim))))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if "kernel" in name:
+            v = rng.standard_normal(leaf.shape) / np.sqrt(leaf.shape[0])
+        elif "scale" in name:
+            v = 1.0 + 0.1 * rng.standard_normal(leaf.shape)
+        else:
+            v = 0.1 * rng.standard_normal(leaf.shape)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def jax_ppo(env, config):
+    """The JAX package's PPO functions for a port env and a port PPOConfig
+    (the same fields): the policy and the inner functions of
+    ``make_ppo_funcs`` that its ``jax.jit`` calls wrap, captured by name
+    (``rollout_step``, ``update``, ``_prepare_batch``, ``_mb_update``), each
+    jitted.  Returns (policy, {name: jitted function})."""
+    import jax
+
+    from gpudrive_lab_tpu.env.env_jax import ObsSpec as JaxObsSpec
+    from gpudrive_lab_tpu.networks.late_fusion import (
+        LateFusionPolicy as FlaxPolicy,
+        PolicyConfig as FlaxPolicyConfig,
+    )
+    from gpudrive_lab_tpu.ppo import ppo as jppo
+
+    policy = FlaxPolicy(FlaxPolicyConfig(
+        action_dim=env.action_space_n, fused_embed=config.fused_embed,
+        embed_remat=config.embed_remat))
+    captured = {}
+    real_jit = jax.jit
+
+    def spy(fn, **kw):
+        jitted = real_jit(fn, **kw)
+        captured[getattr(fn, "__name__", "")] = jitted
+        return jitted
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", spy)
+        jppo.make_ppo_funcs(
+            policy, jax_params(env.params),
+            JaxObsSpec(**dataclasses.asdict(env.spec)),
+            jnp.asarray(env.action_keys.cpu().numpy()),
+            env.config.reward_type,
+            jppo.PPOConfig(**dataclasses.asdict(config)),
+        )
+    return policy, captured
+
+
+def _jnp(x):
+    """A tensor as a jax array (bfloat16 through float32, exactly)."""
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x.detach().cpu().numpy())
+
+
+def traj_to_jax(traj):
+    """A port Transition (stacked [T, ...]) as the JAX package's."""
+    from gpudrive_lab_tpu.ppo.ppo import Transition
+
+    out = {}
+    for name in Transition._fields:
+        v = getattr(traj, name)
+        if v is None:
+            out[name] = None
+        elif isinstance(v, tuple):
+            out[name] = tuple(_jnp(o) for o in v)
+        elif isinstance(v, torch.Tensor):
+            out[name] = _jnp(v)
+        else:
+            out[name] = state_to_jax(v)
+    return Transition(**out)
+
+
+def jax_minibatch_order(key, config):
+    """The permutations (and row starts) that the JAX ``update`` draws from
+    the carry's key (gpudrive_lab_tpu/ppo/ppo.py:547-565, 657-659), as numpy
+    [E, M, Tm] (and [E, M])."""
+    import jax
+
+    T, M, E = config.rollout_len, config.num_minibatches, config.update_epochs
+    rng_epochs, _ = jax.random.split(key)
+    perms, starts = [], []
+    for rng_e in jax.random.split(rng_epochs, E):
+        if config.minibatch_rows:
+            G = config.compact // config.minibatch_rows
+            Mt = M // G
+            rng_t, rng_p = jax.random.split(rng_e)
+            perm = np.asarray(jax.random.permutation(rng_t, T)).reshape(
+                Mt, T // Mt)
+            pairs = np.asarray(jax.random.permutation(rng_p, M))
+            perms.append(perm[pairs // G])
+            starts.append((pairs % G) * config.minibatch_rows)
+        else:
+            perms.append(np.asarray(jax.random.permutation(rng_e, T))
+                         .reshape(M, T // M))
+            starts.append(np.zeros(M, np.int64))
+    return np.stack(perms), np.stack(starts)
+
+
 def sorted_rows(block: np.ndarray) -> np.ndarray:
     """Sort the rows of [..., K, D] lexicographically within each [K, D]
     set, so that two blocks holding the same rows in another order
