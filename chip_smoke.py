@@ -5,13 +5,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from csrc/ (into gpudrive_lab_torch/_build/),
-holds each kernel against its plain PyTorch version at the shapes of the main
-path, drives the main paths (a 91-step late-fusion policy rollout over the 512
-worlds of data/pool_v3 with 128 agent rows; 10 steps of the padded 2048-road
-tiled path; PPO training over the same 512 worlds through build_trainer, with
-a checkpoint round trip and one dense iteration), checks the outputs, and
-prints:
+It builds the port's CUDA kernels from csrc/ (into gpudrive_lab_torch/_build/)
+and prints each kernel's registers per thread, holds each kernel against its
+plain PyTorch version at the shapes of the main path (K3 and K4 also against
+a second launch, bit for bit), times K3 at the row counts the main path gives
+it (65,536, 35,328 and 4,416), drives the main paths (a 91-step late-fusion
+policy rollout over the 512 worlds of data/pool_v3 with 128 agent rows; 10
+steps of the padded 2048-road tiled path; PPO training over the same 512
+worlds through build_trainer, with a checkpoint round trip and one dense
+iteration), checks the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times, the rollout's ms per step split into
@@ -21,7 +23,8 @@ prints:
     breakdown of one profiled train iteration;
   * one JSON line with every kernel (name, route, source, the TPU kernel it
     replaces, launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, library_ms);
+    bound_by, library_ms; for K3 also its fp32-core bound and its time at
+    each row count);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -37,10 +40,12 @@ import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s and
-# fp32 (non-tensor-core) operations/s.  The kernels here run on fp32 cores.
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
+# fp32 operations/s outside the tensor cores, and TF32 tensor-core
+# operations/s (K3's products run there, three passes each in 3xTF32).
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 
 SEED = 0
 STEPS = 91
@@ -58,8 +63,11 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FP32
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+    """Least time in ms for ``nbytes`` of traffic, ``flops`` fp32 operations
+    and ``tf32_flops`` tensor-core operations, and what sets it."""
+    t_b = nbytes / PEAK_BYTES
+    t_f = max(flops / PEAK_FP32, tf32_flops / PEAK_TF32)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -137,8 +145,7 @@ def k4_check(ppo, env, traj, gen) -> dict:
             check(rel <= 1e-4, f"K4 {bname}: max abs err {rel:.3g} of the "
                   f"gradient's max abs value")
             B, Ent, F = x.shape
-            s = arg.sort(dim=1).values
-            winners = B + int((s[:, 1:] != s[:, :-1]).sum())
+            winners = int(fe.winner_table(arg, Ent)[0].sum())
             ms = time_ms(lambda: fe.fused_embed_pool_bwd(
                 x, *w, arg, dpool, "tanh"), 20)
             plain = time_ms(lambda: fe.reference_embed_pool_bwd(
@@ -270,9 +277,10 @@ def train_phase(env, scenes, gen) -> dict:
           f"(busy share {busy / wall:.3f}), "
           f"{sum(c for _, c in by_name.values())} device activities; device "
           + ", ".join(f"{p} {us / 1e3:.3f} ms" for p, us in by_phase.items()))
-    for name, (us, cnt) in sorted(by_name.items(),
-                                  key=lambda kv: -kv[1][0])[:12]:
-        print(f"[train profile] {us / 1e3:10.3f} ms {cnt:6d}x  {name}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (us, cnt)) in enumerate(ranked):
+        if rank < 12 or "embed_pool" in name:  # the top 12, and K3 and K4
+            print(f"[train profile] {us / 1e3:10.3f} ms {cnt:6d}x  {name}")
     after = list(ppo.policy.parameters())
     check(all(bool(torch.isfinite(p).all()) for p in after),
           "a parameter is not finite after training")
@@ -368,9 +376,11 @@ def main() -> int:
     t0 = time.time()
     logs = cuda_build.build()
     print(f"[build] {time.time() - t0:.1f} s for {sorted(logs) or 'cached'}")
+    # ptxas -v: each kernel's (mangled) name, then its spills and registers
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 print(f"[build] {name}: {line.strip()}")
 
     # ---- phase 2: the slice's env and the kernels against their plain
@@ -440,9 +450,12 @@ def main() -> int:
               source="gpudrive_lab_torch/csrc/fused_embed.cu",
               replaces="gpudrive_lab_tpu/networks/fused_embed.py:207",
               library_ms=None, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-              max_abs_err=0.0,
+              bound_fp32_ms=0.0, max_abs_err=0.0,
               parity="pooled max abs err <= 1e-4; argmax equal where the "
-                     "top two differ by > 1e-5")
+                     "top two differ by > 1e-5; two launches bitwise equal")
+    # K3's time at the main path's row counts: the rollout's 65,536 rows,
+    # the update's 35,328-row minibatch and the PPO rollout's 4,416 rows
+    k3_rows = {W * A: {}, 35328: {}, 4416: {}}
     worst_bound = {}
     with torch.no_grad():
         for bname, (emb, x) in blocks.items():
@@ -450,6 +463,9 @@ def main() -> int:
             w = (lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
                  lin2.weight.t().contiguous(), lin2.bias)
             pooled, arg = fe.fused_embed_pool_fwd(x, *w, "tanh")
+            again, arg2 = fe.fused_embed_pool_fwd(x, *w, "tanh")
+            check(torch.equal(pooled, again) and torch.equal(arg, arg2),
+                  f"K3 {bname}: two launches differ")
             y = fe._embed(x, *w, "tanh")  # [B, E, 64] plain activations
             want, _ = y.max(dim=1)
             top2 = y.topk(2, dim=1)
@@ -460,21 +476,41 @@ def main() -> int:
             check(err <= 1e-4, f"K3 {bname}: pooled max abs err {err}")
             check(arg_ok, f"K3 {bname}: argmax differs where the top two "
                   f"differ by more than 1e-5")
-            B, Ent, F = x.shape
-            ms = time_ms(lambda: fe.fused_embed_pool_fwd(x, *w, "tanh"), 20)
-            plain = time_ms(
-                lambda: fe.reference_embed_pool_argmax(x, *w, "tanh"), 3)
-            bms, by = bound(4 * (B * Ent * F + F * 64 + 64 * 64 + 4 * 64)
-                            + 8 * B * 64, B * Ent * fe.embed_flops(F))
-            k3["ms"] += ms
-            k3["plain_ms"] += plain
-            k3["bound_ms"] += bms
-            k3["max_abs_err"] = max(k3["max_abs_err"], err)
-            worst_bound[bname] = by
-            print(f"[K3] {bname} [{B},{Ent},{F}]: max abs err {err:.3g}, "
+            print(f"[K3] {bname} {list(x.shape)}: max abs err {err:.3g}, "
                   f"argmax equal on {int(clear.sum())}/{clear.numel()} "
-                  f"clear rows; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {bms:.4f} ms ({by})")
+                  f"clear units, two launches bitwise equal")
+            B, Ent, F = x.shape
+            for rows, rec in k3_rows.items():
+                xr = x[:rows]
+                ms = time_ms(lambda: fe.fused_embed_pool_fwd(xr, *w, "tanh"),
+                             20)
+                nbytes = (4 * (rows * Ent * F + F * 64 + 64 * 64 + 4 * 64)
+                          + 8 * rows * 64)
+                ent = rows * Ent
+                mma = ent * fe.embed_mma_flops(F)
+                bms, by = bound(nbytes, ent * fe.embed_flops(F) - mma, 3 * mma)
+                fp32_ms, _ = bound(nbytes, ent * fe.embed_flops(F))
+                rec[bname] = (ms, bms, fp32_ms)
+                line = (f"[K3] {bname} [{rows},{Ent},{F}]: kernel {ms:.4f} ms,"
+                        f" bound {bms:.4f} ms ({by}; 3xTF32 on the tensor "
+                        f"cores), fp32-core bound {fp32_ms:.4f} ms")
+                if rows == B:
+                    plain = time_ms(lambda: fe.reference_embed_pool_argmax(
+                        x, *w, "tanh"), 3)
+                    k3["ms"] += ms
+                    k3["plain_ms"] += plain
+                    k3["bound_ms"] += bms
+                    k3["bound_fp32_ms"] += fp32_ms
+                    worst_bound[bname] = by
+                    line += f", plain {plain:.4f} ms"
+                print(line)
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+    for rows, rec in k3_rows.items():
+        ms, bms, fms = (sum(v[i] for v in rec.values()) for i in range(3))
+        print(f"[K3] partner + road at {rows} rows: {ms:.4f} ms, bound "
+              f"{bms:.4f} ms, fp32-core bound {fms:.4f} ms")
+    k3["ms_by_rows"] = {str(r): sum(v[0] for v in rec.values())
+                        for r, rec in k3_rows.items()}
     k3["bound_by"] = worst_bound["road"]
     k3["shape"] = (f"partner [{W * A},127,6] + road [{W * A},200,13] "
                    "per policy forward")
@@ -609,6 +645,8 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "parity",
             "shape")})
+        line["kernels"][-1].update({k: r[k] for k in (
+            "bound_fp32_ms", "ms_by_rows") if k in r})
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,30 +17,38 @@ tensors.  ``fused_embed_pool`` puts the pair behind a
 ``torch.autograd.Function``.
 
 Source note, K3.  Replaces ``fused_embed_pool``'s forward: ``_fused_fwd_impl``
-and ``_fwd_kernel`` (fused_embed.py:84-109, 198-228).  Bound on the H100 at
-the slice's road block (B = 65,536 rows, E = 200, F = 13): ~130 GFLOP of
-fp32 work (EMBED_FLOPS per entity) against 681 MB of input, so operations
-bound it (the kernel runs on the fp32 cores, not the tensor cores).
-Design: one warp per row, two hidden units per lane; the entity group's
-inputs are staged in shared memory with one coalesced load, layer 1 runs
-from registers, LayerNorm statistics are warp-shuffle sums, and layer 2
-reads w2 from shared memory once per group of 4 entities, so shared-memory
-loads stay below the FMA count.  The argmax tie rule is the smallest
-entity index (see the CUDA source).
+and ``_fwd_kernel`` (fused_embed.py:84-109, 198-228).  Bound on the H100:
+operations, ~150 GFLOP for the policy's two blocks at 65,536 rows against
+~0.9 GB of input.  The two products (``embed_mma_flops``) run on the tensor
+cores as wgmma m64n64k8 TF32 in the 3xTF32 split (each operand as hi + lo,
+three passes; one TF32 pass gives ~1e-3 errors and breaks the argmax), so
+their bound is 3 x their operations at 495 TFLOP/s; the rest
+(``embed_flops`` minus the products: biases, LayerNorm, tanh, the max)
+stays on the fp32 cores.  Design: a block is one warpgroup, each warp
+holding 16 entities of its row; layer 1, LayerNorm (quad shuffles), the
+activation and layer 2 stay in registers (w2's rows are permuted so that
+layer 1's accumulators are layer 2's A operand), w1 and w2 sit in shared
+memory pre-split, x is read straight into the fragments at any alignment,
+and persistent blocks walk the rows, one row per warp.  The argmax tie
+rule is the smallest entity index (see the CUDA source); the same inputs
+give the same bits on every launch.
 
 Source note, K4.  Replaces ``_bwd_kernel`` and ``_fused_bwd``
 (fused_embed.py:112-172, 236-280).  The Pallas kernel adds every grid step
 into one output block, which is safe only because the TPU grid runs in
 order; K4 gives each block a fixed range of rows and its own partial sums,
-then adds the partials in block order in a second kernel, so the gradients
-are deterministic.  Only the entities that win one of the 64 units receive
-a cotangent, so K4 recomputes those (at most 64 per row) and not all E.
-Bound on the H100: fp32 operations (``bwd_flops``), since x is read only at
-the winners.  The gradients equal the Pallas kernel's except on exact ties
-of the pooled maximum between different entities, which K3 gives to the
-smallest entity index (jnp.max splits them); ties between identical entity
-rows, such as the observation's padding rows, give the same gradients
-either way.
+then adds the partials in a fixed order in a second kernel, so the
+gradients are deterministic.  Only the entities that win one of the 64
+units receive a cotangent, so K4 recomputes those (at most 64 per row) and
+not all E.  Bound on the H100: fp32 operations (``bwd_flops``), since x is
+read only at the winners; the kernel is bound by latency above that, so it
+works on tiles of 16 rows: their winners (``winner_table`` is the plain
+version of that step) are found per row, gathered together and recomputed
+by all warps at once, with three block barriers per tile.  The gradients
+equal the Pallas kernel's except on exact ties of the pooled maximum
+between different entities, which K3 gives to the smallest entity index
+(jnp.max splits them); ties between identical entity rows, such as the
+observation's padding rows, give the same gradients either way.
 """
 
 from __future__ import annotations
@@ -56,11 +64,18 @@ LN_EPS = 1e-6  # flax.linen.LayerNorm default
 _ACTS = {"tanh": 0, "gelu": 1}
 
 
+def embed_mma_flops(F_in: int, H: int = 64) -> int:
+    """Operations per entity of the embed stack's two products,
+    2*F*H + 2*H*H: the part K3 runs on the tensor cores (three times, in
+    the 3xTF32 split)."""
+    return 2 * F_in * H + 2 * H * H
+
+
 def embed_flops(F_in: int, H: int = 64) -> int:
-    """fp32 operations per entity of the embed stack: the two matmuls
-    (2*F*H + 2*H*H), the biases (2*H) and about 8*H for LayerNorm, the
+    """fp32 operations per entity of the embed stack: the two products
+    (``embed_mma_flops``), the biases (2*H) and about 8*H for LayerNorm, the
     activation's affine and the running max (tanh counted as one)."""
-    return 2 * F_in * H + 2 * H * H + 10 * H
+    return embed_mma_flops(F_in, H) + 10 * H
 
 
 def bwd_flops(F_in: int, rows: int, winners: int, H: int = 64) -> int:
@@ -137,6 +152,23 @@ def reference_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
             (dlin * xh).sum((0, 1)), dlin.sum((0, 1)), dw2, dy.sum((0, 1)))
 
 
+def winner_table(argmax, E: int):
+    """Plain version of K4's first step: each row's distinct winning
+    entities, in order of their first unit.  argmax [B, H] (entries outside
+    [0, E) have no winner).  Returns (count [B] int64: distinct winners per
+    row; rank [B, H] int64: the position of unit j's winner in its row's
+    order, -1 where the unit has none).  Runs on the argmax's device without
+    a host sync."""
+    ok = (argmax >= 0) & (argmax < E)
+    a = torch.where(ok, argmax, -1).long()
+    same = a[:, :, None] == a[:, None, :]  # [B, j, u]: units j, u share e
+    lead = same.to(torch.uint8).argmax(-1)  # first unit with j's winner
+    first = ok & (lead == torch.arange(a.shape[1], device=a.device))
+    order = torch.cumsum(first, dim=1) - 1
+    rank = torch.where(ok, torch.gather(order, 1, lead), -1)
+    return first.sum(dim=1), rank
+
+
 def _lib(name: str):
     lib = cuda_build.load(name)
     if not getattr(lib, "_argtypes_set", False):
@@ -148,7 +180,7 @@ def _lib(name: str):
             lib.fused_embed_pool_bwd.argtypes = [p] * 10 + [i, i, i, ll, i,
                                                             i, p]
             lib.fused_embed_pool_bwd.restype = i
-            lib.fused_embed_pool_bwd_blocks.argtypes = [i, i]
+            lib.fused_embed_pool_bwd_blocks.argtypes = [i]
             lib.fused_embed_pool_bwd_blocks.restype = i
         lib._argtypes_set = True
     return lib
@@ -218,10 +250,6 @@ def fused_embed_pool_fwd(x, w1, b1, g, be, w2, b2, act="tanh"):
 
 fused_embed_pool_fwd.launches = 0
 
-# Most blocks K4 spreads the rows over (4 per SM of an H100); each writes
-# one partial row of the gradients.
-BWD_MAX_BLOCKS = 528
-
 
 def fused_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
                          act="tanh"):
@@ -249,7 +277,10 @@ def fused_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
     out = torch.zeros((n_out,), dtype=torch.float32, device=x.device)
     if B > 0:
         lib = _lib("fused_embed_bwd")
-        nblocks = lib.fused_embed_pool_bwd_blocks(B, BWD_MAX_BLOCKS)
+        # as many blocks as run at once; each writes one partial row
+        nblocks = lib.fused_embed_pool_bwd_blocks(B)
+        if nblocks < 1:
+            raise RuntimeError("fused_embed_pool_bwd: no launch configuration")
         partial = torch.empty((nblocks, n_out), dtype=torch.float32,
                               device=x.device)
         argmax, dpool = argmax.contiguous(), dpool.contiguous()

@@ -26,6 +26,7 @@ from gpudrive_lab_torch.networks.fused_embed import (
     fused_embed_pool_bwd,
     fused_embed_pool_fwd,
     reference_embed_pool_bwd,
+    winner_table,
 )
 
 H = 64
@@ -106,3 +107,32 @@ def test_bwd_wrapper_rejects_bad_inputs():
         fused_embed_pool_bwd(tx, *tparams, arg, tco[:, :32])
     with pytest.raises(ValueError):
         fused_embed_pool_bwd(tx, *tparams, arg, tco, "relu")
+
+
+def _winner_table_numpy(argmax, E):
+    """Each row's distinct winners in order of their first unit: the count
+    and, per unit, its winner's position in that order (-1 for none)."""
+    count = np.zeros(argmax.shape[0], np.int64)
+    rank = np.full(argmax.shape, -1, np.int64)
+    for b, row in enumerate(argmax):
+        seen = {}
+        for j, e in enumerate(row):
+            if 0 <= e < E:
+                rank[b, j] = seen.setdefault(int(e), len(seen))
+        count[b] = len(seen)
+    return count, rank
+
+
+@pytest.mark.parametrize("E,seed", [(1, 0), (5, 1), (200, 2)])
+def test_winner_table_matches_numpy(E, seed):
+    """The plain version of K4's winner step: ranks in order of first
+    appearance, out-of-range units (-1, E) without a winner."""
+    rng = np.random.default_rng(seed)
+    argmax = rng.integers(-1, E + 1, size=(40, H)).astype(np.int32)
+    argmax[0] = 3 % E   # one winner for the whole row
+    argmax[1] = -1      # a padding row: no winner
+    count, rank = winner_table(torch.from_numpy(argmax), E)
+    want_count, want_rank = _winner_table_numpy(argmax, E)
+    np.testing.assert_array_equal(count.numpy(), want_count)
+    np.testing.assert_array_equal(rank.numpy(), want_rank)
+    assert count[0] == 1 and count[1] == 0
