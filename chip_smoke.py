@@ -13,17 +13,23 @@ it (65,536, 35,328 and 4,416), drives the main paths (a 91-step late-fusion
 policy rollout over the 512 worlds of data/pool_v3 with 128 agent rows; 10
 steps of the padded 2048-road tiled path; PPO training over the same 512
 worlds through build_trainer, with a checkpoint round trip and one dense
-iteration), checks the outputs, and prints:
+iteration), holds K1 and K2 on a seeded synthetic large map (10,240 roads,
+scene/large_map.py; phase 4), checks the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
-  * per phase: kernel and plain times, the rollout's ms per step split into
-    simulator and policy, agent-steps/s (steps x created agents / wall time),
+  * per phase: kernel and plain times (K1's and K2's wrapper time per call
+    read where their inputs are made, before any torch.profiler session;
+    their device time per launch from torch.profiler read last, in phase
+    7), the live pairs and their SAT operations that bound K1 and K2, the
+    rollout's ms per step split into simulator and policy, agent-steps/s
+    (steps x created agents / wall time),
     per train iteration the rollout, GAE and update ms and train samples/s
     (controlled-agent samples consumed / wall time), and the device-time
     breakdown of one profiled train iteration;
   * one JSON line with every kernel (name, route, source, the TPU kernel it
     replaces, launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, library_ms; for K3 also its fp32-core bound and its time at
+    bound_by, library_ms; for K1 and K2 also wrapper_ms and their
+    large-map reading; for K3 also its fp32-core bound and its time at
     each row count);
   * last, {"ok": true, "device": {...}}.
 
@@ -41,16 +47,21 @@ import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
-# fp32 operations/s outside the tensor cores, and TF32 tensor-core
-# operations/s (K3's products run there, three passes each in 3xTF32).
+# fp32 operations/s outside the tensor cores (an FMA counted as two), and
+# TF32 tensor-core operations/s (K3's products run there, three passes each
+# in 3xTF32).  K1 and K2 build with --fmad=false: each multiply and add is
+# its own instruction, so their rate is half the FMA rate.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_FP32_NOFMA = 33.5e12
 PEAK_TF32 = 495e12
 
 SEED = 0
 STEPS = 91
 TILED_STEPS = 10
 TRAIN_ITERS = 3  # timed PPO iterations, after one warm-up
+KERNEL_REPS = 100  # launches per device-time reading of K1 and K2
+PLAIN_WORLDS = 16  # large map: worlds held against the plain versions
 DENSE_WORLDS = 64  # worlds of the dense (uncompacted) training iteration
 
 
@@ -63,16 +74,20 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0,
+          fp32_peak: float = PEAK_FP32):
     """Least time in ms for ``nbytes`` of traffic, ``flops`` fp32 operations
-    and ``tf32_flops`` tensor-core operations, and what sets it."""
+    at ``fp32_peak`` and ``tf32_flops`` tensor-core operations, and what
+    sets it."""
     t_b = nbytes / PEAK_BYTES
-    t_f = max(flops / PEAK_FP32, tf32_flops / PEAK_TF32)
+    t_f = max(flops / fp32_peak, tf32_flops / PEAK_TF32)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    """Mean time per call of ``fn`` over ``reps`` back-to-back calls, from
+    CUDA events: for a kernel of a few microseconds this is the host's
+    dispatch rate (checks, allocation, launch), not the kernel's time."""
     import torch
 
     for _ in range(warmup):
@@ -85,6 +100,100 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k2_bound(kernels, agents, roads_t):
+    """K2's bound (ms, what sets it, operations): each input read once and
+    the output written once, or the live pairs' SAT operations (each
+    stopped where the first two axis tests separate its boxes) at the
+    no-FMA rate."""
+    W, A, _ = agents.shape
+    R = roads_t.shape[2]
+    ops = kernels.live_pair_ops(agents, roads_t)
+    return (*bound(4 * (W * A * 8 + W * 8 * R + W * A), ops,
+                   fp32_peak=PEAK_FP32_NOFMA), ops)
+
+
+def k1_bound(kernels, agents_s, tiles, mask):
+    """K1's bound (ms, what sets it, operations): the agents, the mask, the
+    tiles live for some agent block and the output, or the SAT operations
+    of the live pairs inside the live [agent-block, tile] pairs at the
+    no-FMA rate."""
+    W, A, _ = agents_s.shape
+    RT = tiles.shape[3]
+    live_tiles = int(mask.amax(dim=1).sum())  # (world, tile) pairs read
+    ops = kernels.live_pair_ops_tiled(agents_s, tiles, mask)
+    return (*bound(
+        4 * (W * A * 8 + mask.numel() + live_tiles * 8 * RT + W * A), ops,
+        fp32_peak=PEAK_FP32_NOFMA), ops)
+
+
+def twice(fn, what: str):
+    """fn's result, after checking that a second call gives the same
+    bits."""
+    import torch
+
+    first, second = fn(), fn()
+    check(torch.equal(first, second), f"{what}: two launches differ")
+    return first
+
+
+def large_map_phase(kernels, dev) -> dict:
+    """K1 and K2 on the seeded synthetic large map (scene/large_map.py):
+    K1 after inv_perm against K2 at full width, both against their plain
+    versions on the first PLAIN_WORLDS worlds, two launches each, then
+    their wrapper times and bounds.  Returns {kernel: record}; phase 7
+    builds the map again from its seed and adds the device times.  Nothing
+    of the map stays on the card, so training starts as it would without
+    this phase."""
+    import torch
+
+    from gpudrive_lab_torch.scene.large_map import LARGE_MAP, large_map
+
+    t0 = time.time()
+    m = large_map(**LARGE_MAP, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"[large map] {m.describe()}; built in {time.time() - t0:.1f} s")
+    tiles = m.rtiles.feat
+    W, A, _ = m.agents.shape
+    T, RT = tiles.shape[1], tiles.shape[3]
+    dense = twice(lambda: kernels.agent_road_hits_dense(m.agents, m.roads_t),
+                  "large map K2")
+    tiled = twice(lambda: kernels.agent_road_hits_tiled(
+        m.agents_s, tiles, m.mask), "large map K1")
+    check(torch.equal(torch.gather(tiled, 1, m.inv_perm), dense),
+          "large map: K1 differs from K2")
+    n = PLAIN_WORLDS
+    check(torch.equal(dense[:n], kernels.agent_road_hits_dense_plain(
+        m.agents[:n], m.roads_t[:n])), "large map: K2 differs from plain")
+    check(torch.equal(tiled[:n], kernels.agent_road_hits_tiled_plain(
+        m.agents_s[:n], tiles[:n], m.mask[:n])),
+        "large map: K1 differs from plain")
+    print(f"[large map] {int(m.mask.sum())}/{m.mask.numel()} live "
+          f"block-tiles, {int(m.mask.amax(dim=1).sum())}/{W * T} live "
+          f"tiles; K1 = K2 at full width, both = plain on {n} worlds, two "
+          f"launches equal; {int(dense.sum())} agents hit")
+    out = {}
+    for key, fn, (bms, by, ops), pairs, shape in (
+            ("K2", lambda: kernels.agent_road_hits_dense(m.agents, m.roads_t),
+             k2_bound(kernels, m.agents, m.roads_t),
+             kernels.live_pairs(m.agents, m.roads_t),
+             f"agents [{W},{A},8], roads [{W},8,{T * RT}]"),
+            ("K1", lambda: kernels.agent_road_hits_tiled(
+                m.agents_s, tiles, m.mask),
+             k1_bound(kernels, m.agents_s, tiles, m.mask),
+             kernels.live_pairs_tiled(m.agents_s, tiles, m.mask),
+             f"agents [{W},{A},8], tiles [{W},{T},8,{RT}], "
+             f"{int(m.mask.sum())} live block-tiles")):
+        wms = time_ms(fn, KERNEL_REPS)
+        out[key] = dict(shape=shape, wrapper_ms=wms, bound_ms=bms,
+                        bound_by=by)
+        print(f"[large map] {key} {shape}: {pairs} live pairs, {ops} SAT "
+              f"operations; wrapper {wms:.4f} ms per call, bound {bms:.4f} "
+              f"ms ({by})")
+    del m, tiles, dense, tiled
+    torch.cuda.empty_cache()
+    return out
 
 
 def k4_check(ppo, env, traj, gen) -> dict:
@@ -358,6 +467,7 @@ def main() -> int:
     from gpudrive_lab_torch.core import collision, kernels
     from gpudrive_lab_torch.core import step as stepmod
     from gpudrive_lab_torch.networks import fused_embed as fe
+    from gpudrive_lab_torch.utils.profiling import kernel_time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -415,24 +525,28 @@ def main() -> int:
                 env.step_dynamics(torch.randint(
                     0, env.action_space_n, (W, A), generator=gen, device=dev))
         feat, roads_t = road_inputs(env)
-        got = kernels.agent_road_hits_dense(feat, roads_t)
+        got = twice(lambda: kernels.agent_road_hits_dense(feat, roads_t),
+                    f"K2 at {when}")
         want = kernels.agent_road_hits_dense_plain(feat, roads_t)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"K2 differs from its plain version "
               f"at {when}: {int((got != want).sum())} agents")
-        print(f"[K2] {when}: bitwise equal, {int(got.sum())} agents hit")
-    k2["ms"] = time_ms(lambda: kernels.agent_road_hits_dense(feat, roads_t), 50)
+        print(f"[K2] {when}: bitwise equal to plain, two launches equal, "
+              f"{int(got.sum())} agents hit, "
+              f"{kernels.live_pairs(feat, roads_t)} live pairs of "
+              f"{W * A * R}")
+    k2_in = (feat, roads_t)  # device time in phase 7
+    k2["wrapper_ms"] = time_ms(
+        lambda: kernels.agent_road_hits_dense(*k2_in), KERNEL_REPS)
     k2["plain_ms"] = time_ms(
         lambda: kernels.agent_road_hits_dense_plain(feat, roads_t), 5)
-    k2["bound_ms"], k2["bound_by"] = bound(
-        4 * (W * A * 8 + W * 8 * R + W * A),
-        W * A * R * kernels.SAT_FLOPS)
+    k2["bound_ms"], k2["bound_by"], ops = k2_bound(kernels, feat, roads_t)
     k2["max_abs_err"] = 0.0
     k2["shape"] = f"agents [{W},{A},8], roads [{W},8,{R}]"
     results["K2"] = k2
-    print(f"[K2] {k2['shape']}: kernel {k2['ms']:.4f} ms, plain "
-          f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
-          f"({k2['bound_by']})")
+    print(f"[K2] {k2['shape']}: wrapper {k2['wrapper_ms']:.4f} ms per call,"
+          f" plain {k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+          f"({k2['bound_by']}; {ops} SAT operations)")
 
     policy = slice_policy(device=dev, seed=SEED)
     obs = env.get_obs()
@@ -560,17 +674,21 @@ def main() -> int:
     feat, roads_t = road_inputs(tenv)
     feat_s, mask, inv_perm = collision.tile_mask_and_order(
         tenv.scene, tenv.state, feat)
-    got = kernels.agent_road_hits_tiled(feat_s, rt.feat, mask)
+    got = twice(lambda: kernels.agent_road_hits_tiled(feat_s, rt.feat, mask),
+                "K1 at 2048 roads")
     want = kernels.agent_road_hits_tiled_plain(feat_s, rt.feat, mask)
-    dense = kernels.agent_road_hits_dense(feat, roads_t)
+    dense = twice(lambda: kernels.agent_road_hits_dense(feat, roads_t),
+                  "K2 at 2048 roads")
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1 differs from its plain version")
+    check(torch.equal(dense, kernels.agent_road_hits_dense_plain(
+        feat, roads_t)), "K2 at 2048 roads differs from its plain version")
     check(torch.equal(torch.gather(got, 1, inv_perm), dense),
           "K1 differs from K2 on the same state")
     live = int(mask.sum())
     print(f"[K1] tiles [{W},{T},8,{RT}], {live}/{mask.numel()} live "
-          f"block-tiles: bitwise equal to plain and to K2, "
-          f"{int(got.sum())} agents hit")
+          f"block-tiles: bitwise equal to plain and to K2, two launches "
+          f"equal, {int(got.sum())} agents hit")
     k1 = dict(name="K1 agent_road_hits_tiled", route="cuda",
               source="gpudrive_lab_torch/csrc/agent_road.cu",
               replaces="gpudrive_lab_tpu/core/pallas_kernels.py:157",
@@ -578,19 +696,25 @@ def main() -> int:
               parity="bitwise equal to plain and to K2",
               shape=f"agents [{W},{A},8], tiles [{W},{T},8,{RT}], "
                     f"{live} live block-tiles")
-    k1["ms"] = time_ms(
-        lambda: kernels.agent_road_hits_tiled(feat_s, rt.feat, mask), 50)
+    k1_in, k2_2048_in = (feat_s, rt.feat, mask), (feat, roads_t)  # phase 7
+    k1["wrapper_ms"] = time_ms(
+        lambda: kernels.agent_road_hits_tiled(*k1_in), KERNEL_REPS)
     k1["plain_ms"] = time_ms(
         lambda: kernels.agent_road_hits_tiled_plain(feat_s, rt.feat, mask), 3)
-    live_tiles = int(mask.amax(dim=1).sum())  # (world, tile) pairs read
-    k1["bound_ms"], k1["bound_by"] = bound(
-        4 * (W * A * 8 + mask.numel() + live_tiles * 8 * RT + W * A),
-        live * 16 * RT * kernels.SAT_FLOPS)
-    k2_2048 = time_ms(lambda: kernels.agent_road_hits_dense(feat, roads_t), 20)
-    print(f"[K1] kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
-          f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}); K2 on the "
-          f"same 2048 roads {k2_2048:.4f} ms")
+    k1["bound_ms"], k1["bound_by"], ops = k1_bound(kernels, *k1_in)
+    print(f"[K1] wrapper {k1['wrapper_ms']:.4f} ms per call, plain "
+          f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+          f"({k1['bound_by']}; {ops} SAT operations)")
     results["K1"] = k1
+    k2_2048 = dict(shape=f"agents [{W},{A},8], roads [{W},8,{T * RT}]",
+                   wrapper_ms=time_ms(lambda: kernels.agent_road_hits_dense(
+                       *k2_2048_in), KERNEL_REPS))
+    k2_2048["bound_ms"], k2_2048["bound_by"], ops = k2_bound(kernels,
+                                                             *k2_2048_in)
+    print(f"[K2] padded {k2_2048['shape']}: wrapper "
+          f"{k2_2048['wrapper_ms']:.4f} ms per call, bound "
+          f"{k2_2048['bound_ms']:.4f} ms ({k2_2048['bound_by']}; {ops} SAT "
+          f"operations)")
 
     tenv.reset()
     torch.cuda.synchronize()
@@ -611,6 +735,8 @@ def main() -> int:
     check(k1["launches"] > 0, "the tiled rollout did not launch K1")
     check(bool(torch.isfinite(tres.rewards).all()), "tiled rewards not finite")
     del tenv, tres
+    # the large map: checks and wrapper times here, device times in phase 7
+    lrec = large_map_phase(kernels, dev)
 
     # ---- phase 5: the training path, PPO over the 512 worlds -------------
     results["K4"] = train_phase(env, scenes, gen)
@@ -638,6 +764,32 @@ def main() -> int:
     print(f"[small] 10 argmax steps on 4 worlds: card and CPU agree "
           f"(obs max abs diff {worst:.3g})")
 
+    # ---- phase 7: K1's and K2's device times ------------------------------
+    # Last, because they run under torch.profiler: after a profiler session
+    # each launch costs the host more, and the launch-bound train iterations
+    # of phase 5 and the wrapper times would show it.
+    from gpudrive_lab_torch.scene.large_map import LARGE_MAP, large_map
+
+    lmap = large_map(**LARGE_MAP, seed=SEED, device=dev)
+    tiles = lmap.rtiles.feat
+    for what, rec, fn, args, kernel in (
+            ("[K2]", results["K2"], kernels.agent_road_hits_dense, k2_in,
+             "ar_dense_kernel"),
+            ("[K1]", results["K1"], kernels.agent_road_hits_tiled, k1_in,
+             "ar_tiled_kernel"),
+            ("[K2] padded", k2_2048,
+             kernels.agent_road_hits_dense, k2_2048_in, "ar_dense_kernel"),
+            ("[large map] K2", lrec["K2"], kernels.agent_road_hits_dense,
+             (lmap.agents, lmap.roads_t), "ar_dense_kernel"),
+            ("[large map] K1", lrec["K1"], kernels.agent_road_hits_tiled,
+             (lmap.agents_s, tiles, lmap.mask), "ar_tiled_kernel")):
+        rec["ms"] = kernel_time_ms(lambda: fn(*args), KERNEL_REPS, kernel)
+        print(f"{what} {rec['shape']}: kernel {rec['ms']:.4f} ms (device), "
+              f"wrapper {rec['wrapper_ms']:.4f} ms per call, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    for key, rec in lrec.items():
+        results[key]["large_map"] = rec
+
     line = {"kernels": []}
     for key in ("K1", "K2", "K3", "K4"):
         r = results[key]
@@ -646,7 +798,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "parity",
             "shape")})
         line["kernels"][-1].update({k: r[k] for k in (
-            "bound_fp32_ms", "ms_by_rows") if k in r})
+            "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows")
+            if k in r})
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

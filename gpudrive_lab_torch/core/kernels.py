@@ -14,24 +14,28 @@ Feature rows (float32):
 K2 ``agent_road_hits_dense`` replaces ``agent_road_hits_pallas`` /
 ``_ar_kernel`` (pallas_kernels.py:30-80, 176-199).  In the port it carries
 the dense branch of collision_system at the default road buckets, where
-eager PyTorch would write the whole [W, A, R] lattice to memory.  Bound on
-the H100 at the slice's shapes (W=512, A=128, R=256): 16.8 M pair tests of
-SAT_FLOPS fp32 operations each over ~6 MB of input, so operations, not
-bytes, bound it.  Design: one block per world and one thread per agent; the
-world's roads go through shared memory in chunks of 256 and every thread of
-the block reads the same segment at once, so each road byte is read from
-device memory once per world.
+eager PyTorch would write the whole [W, A, R] lattice to memory.  Only the
+pairs of an active agent and a road its class may hit can raise an agent's
+hit above +0.0 (``live_pairs``): at the slice's reset state (W=512, A=128,
+R=256) 188,679 of the 16.8 M lattice pairs, so ~6.5 MB of input, not the
+SAT, bound it on the H100.  Design: one block per world; the block compacts
+its live agents and its collidable roads (in chunks of 256) into shared
+memory and spreads their pairs over all its threads; a pair that the SAT's
+first two axis tests separate stops there.
 
 K1 ``agent_road_hits_tiled`` replaces ``agent_road_hits_tiled`` /
 ``_ar_tiled_kernel`` / ``_sat_hits`` (pallas_kernels.py:89-173).  It runs
 when the scene has Morton-sorted road tiles (road buckets >= 2048, or
-``use_tile_collision=True``).  Bound: the pair tests of the live
-[agent-block, tile] pairs (data dependent: counted from the mask), at
-SAT_FLOPS each; the skipped tiles are neither read nor tested.  Design: one
-block per (world, 16-agent block), 16 threads per agent; the block reads its
-mask row itself and skips dead tiles together, stages each live tile in
-shared memory and ORs the hits with warp shuffles.
+``use_tile_collision=True``).  Bound: the bytes of the tiles live for some
+agent block, or the SAT operations of the live pairs inside the live
+[agent-block, tile] pairs (``live_pair_ops_tiled``), whichever is larger.
+Design: one block per world, so a tile live for several agent blocks is
+staged once; the block walks its live tiles with cp.async double buffering
+and tests each tile's collidable roads against the live agents whose block
+marks the tile.
 
+Both write every output row and take each agent's max with atomicMax on
+the bits of a non-negative float, so every launch gives the same bits.
 Both give bitwise the same hits as their plain versions: the CUDA file
 builds with --fmad=false and keeps the plain version's operation order.
 """
@@ -52,8 +56,14 @@ AGENT_BLOCK = 16
 # subtracts, multiplies and compares; abs, negation and selects not
 # counted): 2 deltas, 6 for cos/sin of the relative yaw, 12 for the two
 # frame rotations, 16 for the four separation bounds, 4 compares, 2 for the
-# allow/active product, 1 for the running max.
+# allow/active product, 1 for the running max.  The kernels build with
+# --fmad=false, so each is one instruction: no FMA pairs them.
 SAT_FLOPS = 43
+# The same count for a pair that the first two axis tests separate, where
+# sat_hit() in csrc/agent_road.cu stops: 2 deltas, 6 for cos/sin of the
+# relative yaw, 6 for the rotation into the agent's frame, 8 for two
+# separation bounds, 2 compares, 1 for the running max.
+SAT_EARLY_FLOPS = 25
 
 
 def _sat_hits(a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -105,6 +115,77 @@ def agent_road_hits_tiled_plain(agents: torch.Tensor, tiles: torch.Tensor,
     hit = _sat_hits(agents[:, None], tiles)  # [W, T, A, RT]
     live = mask.repeat_interleave(AGENT_BLOCK, dim=1).transpose(1, 2) > 0
     return torch.where(live[..., None], hit, 0.0).amax(dim=(1, 3))
+
+
+def _live_counts(agents: torch.Tensor, roads: torch.Tensor) -> torch.Tensor:
+    """[W, A, T] int64: for each agent, the roads of each tile of
+    ``roads`` [W, T, 8, RT] whose pair with it can hit above +0.0, i.e.
+    whose allow value for the agent's class has the sign of the agent's
+    ``active`` (both > 0 or both < 0; the hit is allowed * active)."""
+    act = agents[..., 6, None]  # [W, A, 1]
+    veh = agents[..., 7, None] > 0.5
+    veh_row, other_row = roads[:, None, :, 6], roads[:, None, :, 7]
+    pos = torch.where(veh, (veh_row > 0).sum(-1), (other_row > 0).sum(-1))
+    neg = torch.where(veh, (veh_row < 0).sum(-1), (other_row < 0).sum(-1))
+    return torch.where(act > 0, pos, torch.where(act < 0, neg, 0))
+
+
+def live_pairs(agents: torch.Tensor, roads_t: torch.Tensor) -> int:
+    """Pairs of agents [W, A, 8] and roads_t [W, 8, R] that can raise an
+    agent's hit above +0.0: the work K2 cannot skip."""
+    return int(_live_counts(agents, roads_t[:, None]).sum())
+
+
+def live_pairs_tiled(agents: torch.Tensor, tiles: torch.Tensor,
+                     mask: torch.Tensor) -> int:
+    """The pairs of ``live_pairs`` inside the [agent-block, tile] pairs that
+    ``mask`` marks live: the work K1 cannot skip."""
+    live = mask.repeat_interleave(AGENT_BLOCK, dim=1) > 0  # [W, A, T]
+    return int(torch.where(live, _live_counts(agents, tiles), 0).sum())
+
+
+def _pair_ops(a: torch.Tensor, r: torch.Tensor, where=None) -> int:
+    """fp32 operations of the live pairs of a [..., A, 8] and r [..., 8, R]
+    (inside ``where``, a bool broadcast to [..., A, R], if given):
+    SAT_EARLY_FLOPS for a pair that the first two axis tests separate,
+    SAT_FLOPS for the rest."""
+    act = a[..., 6:7]
+    allowed = torch.where(a[..., 7:8] > 0.5, r[..., 6:7, :], r[..., 7:8, :])
+    live = ((act > 0) & (allowed > 0)) | ((act < 0) & (allowed < 0))
+    if where is not None:
+        live &= where
+    px, py = a[..., 0:1], a[..., 1:2]
+    ca, sa = a[..., 2:3], a[..., 3:4]
+    a0, a1 = a[..., 4:5], a[..., 5:6]
+    cb, sb = r[..., 2:3, :], r[..., 3:4, :]
+    b0, b1 = r[..., 4:5, :], r[..., 5:6, :]
+    dx_w = r[..., 0:1, :] - px
+    dy_w = r[..., 1:2, :] - py
+    ac = torch.abs(cb * ca + sb * sa)
+    asn = torch.abs(sb * ca - cb * sa)
+    early = ((torch.abs(ca * dx_w + sa * dy_w) > a0 + b0 * ac + b1 * asn)
+             | (torch.abs(-sa * dx_w + ca * dy_w) > a1 + b0 * asn + b1 * ac))
+    n_early = int((live & early).sum())
+    return SAT_EARLY_FLOPS * n_early + SAT_FLOPS * (int(live.sum()) - n_early)
+
+
+def live_pair_ops(agents: torch.Tensor, roads_t: torch.Tensor,
+                  worlds: int = 16) -> int:
+    """fp32 operations that K2's function needs on these inputs: the SAT of
+    each pair of ``live_pairs``, stopped where the first two axis tests
+    separate the boxes.  ``worlds`` worlds at a time bound the memory."""
+    return sum(_pair_ops(agents[w:w + worlds], roads_t[w:w + worlds])
+               for w in range(0, agents.shape[0], worlds))
+
+
+def live_pair_ops_tiled(agents: torch.Tensor, tiles: torch.Tensor,
+                        mask: torch.Tensor, worlds: int = 16) -> int:
+    """The operations of ``live_pair_ops`` for the pairs of
+    ``live_pairs_tiled``: the work K1 cannot skip."""
+    live = mask.repeat_interleave(AGENT_BLOCK, dim=1).transpose(1, 2) > 0
+    return sum(_pair_ops(agents[w:w + worlds, None], tiles[w:w + worlds],
+                         live[w:w + worlds, ..., None])
+               for w in range(0, agents.shape[0], worlds))
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int):
@@ -188,11 +269,11 @@ def agent_road_hits_tiled(agents: torch.Tensor, tiles: torch.Tensor,
         return agent_road_hits_tiled_plain(agents, tiles, mask)
     if len(devs) != 1 or agents.device.type != "cuda":
         raise ValueError(f"inputs on {devs}: must share one CUDA device")
-    if ROAD_F * RT * 4 > 48 * 1024:
-        raise ValueError(f"tile size {RT} exceeds the kernel's shared memory")
-    out = torch.zeros((W, A), dtype=torch.float32, device=agents.device)
-    if W == 0 or A == 0 or T == 0:
+    out = torch.empty((W, A), dtype=torch.float32, device=agents.device)
+    if W == 0 or A == 0:
         return out
+    if T == 0:
+        return out.zero_()
     status = _lib().agent_road_hits_tiled(
         agents.data_ptr(), tiles.data_ptr(), mask.data_ptr(), out.data_ptr(),
         W, A, T, RT, torch.cuda.current_stream(agents.device).cuda_stream,

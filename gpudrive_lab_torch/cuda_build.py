@@ -46,14 +46,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _command(name: str, out: Path) -> list[str]:
+def _source(name: str, source=None) -> Path:
+    return Path(source) if source is not None else CSRC / f"{name}.cu"
+
+
+def _command(name: str, out: Path, source=None) -> list[str]:
     return ([nvcc_path()] + _ARCH + _COMMON + FLAGS[name]
-            + ["-o", str(out), str(CSRC / f"{name}.cu")])
+            + ["-o", str(out), str(_source(name, source))])
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, source=None) -> Path:
+    """Where the library of ``csrc/<name>.cu`` (or of ``source``, built with
+    ``name``'s flags) lands: named by a hash of the source and flags."""
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes()
+        _source(name, source).read_bytes()
         + " ".join(_ARCH + _COMMON + FLAGS[name]).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -65,16 +71,22 @@ def build(names=None) -> dict[str, str]:
     this call (ptxas register and shared-memory report included).  Raises
     RuntimeError with the compiler's output if any build fails."""
     names = list(FLAGS) if names is None else list(names)
+    return _build({name: (name, None) for name in names})
+
+
+def _build(jobs: dict) -> dict[str, str]:
+    """Compile each job {key: (name, source)} not built yet, in parallel;
+    {key: compiler output} of those compiled."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for key, (name, source) in jobs.items():
+        out = library_path(name, source)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (
+        procs[key] = (
             subprocess.Popen(
-                _command(name, tmp), stdout=subprocess.PIPE,
+                _command(name, tmp, source), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True,
             ),
             tmp,
@@ -102,6 +114,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def load_source(name: str, source) -> tuple[ctypes.CDLL, str]:
+    """Another version of ``csrc/<name>.cu`` with the same C entry points
+    (an older one, say), built with ``name``'s flags and loaded beside the
+    package's own, to compare versions on the card.  Returns the library
+    and the compiler's output ('' if it was built before)."""
+    log = _build({name: (name, source)}).get(name, "")
+    return ctypes.CDLL(str(library_path(name, source))), log
+
+
+def use(name: str, lib: ctypes.CDLL) -> None:
+    """From now on serve ``lib`` (from ``load_source``) as the library of
+    ``csrc/<name>.cu``: the package's wrappers launch that version."""
+    _loaded[name] = lib
 
 
 def check(status: int, what: str) -> None:

@@ -5,7 +5,8 @@ gpudrive/integrations/puffer/ppo.py: ``Profile`` per-phase timers and
 controlled/padded SPS :426-515, the ``Utilization`` monitor thread
 :669-692).  ``Utilization`` reads the device's allocated memory through
 ``torch.cuda``; ``device_trace`` and ``device_breakdown`` take and read a
-torch.profiler trace."""
+torch.profiler trace, and ``kernel_time_ms`` reads one kernel's device time
+per launch from one."""
 
 from __future__ import annotations
 
@@ -126,3 +127,47 @@ def device_breakdown(prof, ranges=()):
                        if e.name == r and e.device_type != cuda)
                 for r in ranges}
     return sum(v[0] for v in by_name.values()), dict(by_name), by_range
+
+
+# torch.profiler sessions that kernel_time_ms tries before it gives up.
+PROFILER_SESSIONS = 5
+
+
+def kernel_time_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time in ms of one launch of the CUDA kernel whose name
+    contains ``kernel``, over ``reps`` calls of ``fn`` (after one warm-up
+    call) under torch.profiler.  This is the kernel's own time on the card:
+    the host's work around each launch (checks, allocation, the launch
+    call) is not in it.  Before each call the L2 cache is flushed by
+    writing twice its size, so the kernel reads its inputs from device
+    memory, as a caller that ran other work in between finds them.  The
+    mean is over the launches the trace holds.  torch.profiler drops
+    events now and then: up to 11 of 100 seen on an H100, and in a few
+    sessions most or all of them.  A session whose trace holds fewer than
+    half of the launches is therefore run again, up to PROFILER_SESSIONS
+    in all; it raises if none holds half, or if a trace holds more
+    launches than calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    l2 = torch.cuda.get_device_properties(torch.cuda.current_device())
+    flush = torch.empty(2 * l2.L2_cache_size, dtype=torch.uint8,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    traced = []
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == cuda and kernel in e.name]
+        traced.append(len(times))
+        if len(times) > reps:
+            break
+        if len(times) >= reps / 2:
+            return sum(times) / len(times) / 1e3
+    raise RuntimeError(f"{kernel}: {traced} launches traced in each session "
+                       f"over {reps} calls")

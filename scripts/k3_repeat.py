@@ -21,24 +21,18 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def build(source: str, out: str) -> ctypes.CDLL:
+def build(source: str) -> ctypes.CDLL:
     from gpudrive_lab_torch import cuda_build
 
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    cmd = ([cuda_build.nvcc_path()] + cuda_build._ARCH + cuda_build._COMMON
-           + ["-o", out, source])
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(out)
+    lib, _ = cuda_build.load_source("fused_embed", source)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_embed_pool_fwd.argtypes = [p] * 9 + [i, i, i, ll, i, p]
     lib.fused_embed_pool_fwd.restype = i
@@ -62,10 +56,7 @@ def main() -> int:
         print("k3_repeat: CUDA is not available", file=sys.stderr)
         return 2
     B, E, F = (int(v) for v in args.case.split(","))
-    with open(args.source, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    lib = build(args.source, os.path.join(
-        ROOT, "gpudrive_lab_torch", "_build", f"k3_repeat_{tag}.so"))
+    lib = build(args.source)
 
     # the test's input: the same generator, seed and draw order
     g = torch.Generator().manual_seed(B + E)

@@ -46,27 +46,170 @@ def _features(rng, W, A, R):
     return torch.from_numpy(agents), torch.from_numpy(roads)
 
 
-@pytest.mark.parametrize("W,A,R", [(3, 128, 256), (2, 40, 700)])
+def _dense_on_card(dev, agents, roads):
+    """K2 on the card, launched twice: the launch count, the two launches'
+    bits, and the result on the CPU."""
+    before = kernels.agent_road_hits_dense.launches
+    a, r = agents.to(dev), roads.to(dev)
+    got = kernels.agent_road_hits_dense(a, r)
+    again = kernels.agent_road_hits_dense(a, r)
+    assert kernels.agent_road_hits_dense.launches == before + 2
+    assert torch.equal(got, again)
+    return got.cpu()
+
+
+def _tiled_on_card(dev, agents, tiles, mask):
+    before = kernels.agent_road_hits_tiled.launches
+    a, t, m = agents.to(dev), tiles.to(dev), mask.to(dev)
+    got = kernels.agent_road_hits_tiled(a, t, m)
+    again = kernels.agent_road_hits_tiled(a, t, m)
+    assert kernels.agent_road_hits_tiled.launches == before + 2
+    assert torch.equal(got, again)
+    return got.cpu()
+
+
+@pytest.mark.parametrize("W,A,R", [(3, 128, 256), (2, 40, 700),
+                                   (2, 300, 333)])
 def test_dense_kernel_matches_plain(dev, W, A, R):
     agents, roads = _features(np.random.default_rng(R), W, A, R)
-    before = kernels.agent_road_hits_dense.launches
-    got = kernels.agent_road_hits_dense(agents.to(dev), roads.to(dev))
-    assert kernels.agent_road_hits_dense.launches == before + 1
+    got = _dense_on_card(dev, agents, roads)
     want = kernels.agent_road_hits_dense_plain(agents, roads)
-    assert torch.equal(got.cpu(), want) and want.sum() > 0
+    assert torch.equal(got, want) and want.sum() > 0
 
 
-def test_tiled_kernel_matches_plain(dev):
-    W, A, T, RT = 2, 64, 3, 256
-    rng = np.random.default_rng(1)
+@pytest.mark.parametrize("R", [1, 33, 257, 2048, 10240])
+@pytest.mark.parametrize("A", [1, 37, 128])
+def test_dense_kernel_shapes(dev, A, R):
+    """K2 at ragged A and R (one road; one warp and one more; more roads
+    than a chunk; the tiled buckets' 2,048 and 10,240)."""
+    agents, roads = _features(np.random.default_rng(A * R), 2, A, R)
+    got = _dense_on_card(dev, agents, roads)
+    assert torch.equal(got, kernels.agent_road_hits_dense_plain(agents, roads))
+
+
+def test_dense_kernel_nothing_to_test(dev):
+    """No active agent, or no collidable road: every row +0.0."""
+    agents, roads = _features(np.random.default_rng(3), 2, 64, 300)
+    idle = agents.clone()
+    idle[..., 6] = 0.0
+    blind = roads.clone()
+    blind[:, 6:8] = 0.0
+    for a, r in ((idle, roads), (agents, blind)):
+        got = _dense_on_card(dev, a, r)
+        assert torch.equal(got, torch.zeros_like(got))
+        assert torch.equal(got, kernels.agent_road_hits_dense_plain(a, r))
+
+
+def test_dense_kernel_touching_pairs(dev):
+    """Boxes on a quarter-metre grid, axis-aligned or turned by a right
+    angle (cos and sin exactly 0 or +-1): many pairs touch exactly, where
+    the SAT's <= decides.  Bitwise equal to the plain version."""
+    rng = np.random.default_rng(5)
+    W, A, R = 4, 128, 512
+    quarter = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]], np.float32)
+
+    def rows(n, lead):
+        cs = quarter[rng.integers(0, 4, (W, n))]
+        return np.concatenate([
+            rng.integers(-24, 24, (W, n, 2)).astype(np.float32) / 4, cs,
+            rng.integers(1, 9, (W, n, 2)).astype(np.float32) / 4, lead], -1)
+
+    agents = rows(A, np.stack([rng.random((W, A)) < 0.8,
+                               rng.random((W, A)) < 0.7], -1))
+    roads = rows(R, np.stack([rng.random((W, R)) < 0.5,
+                              rng.random((W, R)) < 0.2], -1))
+    agents = torch.from_numpy(agents.astype(np.float32))
+    roads = torch.from_numpy(roads.astype(np.float32).transpose(0, 2, 1)
+                             .copy())
+    # exact contact: some |offset| equals its bound
+    hit = kernels._sat_hits(agents, roads)
+    assert hit.sum() > 0
+    got = _dense_on_card(dev, agents, roads)
+    assert torch.equal(got, kernels.agent_road_hits_dense_plain(agents, roads))
+
+
+def test_dense_kernel_nonfinite_inputs(dev):
+    """NaN and inf in positions, extents and allow/active values: fmaxf
+    drops a NaN pair where torch.amax keeps it, so the kernel is compared,
+    after > 0.5 (all collision_system reads), with the plain pair hits'
+    max over the pairs that are not NaN."""
+    rng = np.random.default_rng(9)
+    agents, roads = _features(rng, 3, 64, 300)
+    for t, shape in ((agents, (3, 64)), (roads, (3, 300))):
+        for v in (float("nan"), float("inf"), -float("inf")):
+            idx = tuple(torch.from_numpy(rng.integers(0, n, 12))
+                        for n in shape)
+            f = torch.from_numpy(rng.integers(0, 8, 12))
+            if t is agents:
+                t[idx[0], idx[1], f] = v
+            else:
+                t[idx[0], f, idx[1]] = v
+    hit = kernels._sat_hits(agents, roads)
+    want = torch.where(hit.isnan(), 0.0, hit).amax(dim=-1)
+    got = _dense_on_card(dev, agents, roads)
+    assert torch.equal(got > 0.5, want > 0.5) and bool((want > 0.5).any())
+
+
+def _tiles(rng, W, A, T, RT=256):
     agents, roads = _features(rng, W, A, T * RT)
-    tiles = roads.reshape(W, 8, T, RT).transpose(1, 2).contiguous()
-    mask = torch.from_numpy(
-        (rng.random((W, A // 16, T)) < 0.6).astype(np.int32))
-    got = kernels.agent_road_hits_tiled(agents.to(dev), tiles.to(dev),
-                                        mask.to(dev))
+    return agents, roads.reshape(W, 8, T, RT).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("masks", ["random", "all", "none"])
+@pytest.mark.parametrize("W,A,T", [(2, 64, 3), (2, 128, 40), (2, 256, 17)])
+def test_tiled_kernel_matches_plain(dev, W, A, T, masks):
+    """K1 with random, all-live and all-dead masks, at the large maps' 40
+    tiles, and with more agents than threads; every row is written (the
+    output is not pre-zeroed)."""
+    rng = np.random.default_rng(T)
+    agents, tiles = _tiles(rng, W, A, T)
+    p = {"random": 0.6, "all": 1.0, "none": 0.0}[masks]
+    mask = torch.from_numpy((rng.random((W, A // 16, T)) < p)
+                            .astype(np.int32))
+    # leave a NaN-filled block in the allocator's cache for K1's output
+    torch.full((W, A), float("nan"), device=dev)
+    got = _tiled_on_card(dev, agents, tiles, mask)
     want = kernels.agent_road_hits_tiled_plain(agents, tiles, mask)
-    assert torch.equal(got.cpu(), want) and want.sum() > 0
+    assert torch.equal(got, want)
+    assert (want.sum() > 0) == (masks != "none")
+    if masks == "all":  # every tile live: K1 equals K2 over the same roads
+        roads = tiles.transpose(1, 2).reshape(W, 8, -1).contiguous()
+        assert torch.equal(got, _dense_on_card(dev, agents, roads))
+
+
+def test_tiled_kernel_unaligned_tiles(dev):
+    """Tiles that start 4 bytes past a 16-byte boundary are staged with
+    4-byte copies and give the same bits."""
+    rng = np.random.default_rng(11)
+    W, A, T = 2, 64, 5
+    agents, tiles = _tiles(rng, W, A, T)
+    mask = torch.from_numpy((rng.random((W, A // 16, T)) < 0.6)
+                            .astype(np.int32))
+    flat = torch.empty(tiles.numel() + 1, device=dev)
+    shifted = flat[1:].view(tiles.shape)
+    shifted.copy_(tiles.to(dev))
+    assert shifted.data_ptr() % 16 == 4
+    got = _tiled_on_card(dev, agents, shifted, mask)
+    assert torch.equal(got, kernels.agent_road_hits_tiled_plain(
+        agents, tiles, mask))
+    assert got.sum() > 0
+
+
+def test_tiled_kernel_on_large_map(dev):
+    """The synthetic large map at 32 worlds (10,240 roads, 40 tiles): K1
+    after inv_perm equals K2 over the same roads, and both their plain
+    versions."""
+    from gpudrive_lab_torch.scene.large_map import large_map
+
+    m = large_map(W=32, A=128, R=10240, n_active=24, seed=1, device="cpu")
+    dense = _dense_on_card(dev, m.agents, m.roads_t)
+    tiled = _tiled_on_card(dev, m.agents_s, m.rtiles.feat, m.mask)
+    assert torch.equal(torch.gather(tiled, 1, m.inv_perm), dense)
+    assert torch.equal(dense, kernels.agent_road_hits_dense_plain(
+        m.agents, m.roads_t))
+    assert torch.equal(tiled, kernels.agent_road_hits_tiled_plain(
+        m.agents_s, m.rtiles.feat, m.mask))
+    assert dense.sum() > 0
 
 
 def _embed_params(g, F):
