@@ -14,7 +14,10 @@ policy rollout over the 512 worlds of data/pool_v3 with 128 agent rows; 10
 steps of the padded 2048-road tiled path; PPO training over the same 512
 worlds through build_trainer, with a checkpoint round trip and one dense
 iteration), holds K1 and K2 on a seeded synthetic large map (10,240 roads,
-scene/large_map.py; phase 4), checks the outputs, and prints:
+scene/large_map.py; phase 4), runs the sensors (lidar, BEV and camera on
+every step of a policy rollout over the same 512 worlds, then each sensor
+against the same port function on the CPU for the first 4 worlds: the
+sensor phase), checks the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -24,13 +27,16 @@ scene/large_map.py; phase 4), checks the outputs, and prints:
     rollout's ms per step split into simulator and policy, agent-steps/s
     (steps x created agents / wall time),
     per train iteration the rollout, GAE and update ms and train samples/s
-    (controlled-agent samples consumed / wall time), and the device-time
-    breakdown of one profiled train iteration;
+    (controlled-agent samples consumed / wall time), the device-time
+    breakdown of one profiled train iteration, and per sensor its ms per
+    call (CUDA events), its peak memory, its output's bytes / 3.35 TB/s as
+    a floor and the samples, cells or pixels where card and CPU differ;
   * one JSON line with every kernel (name, route, source, the TPU kernel it
     replaces, launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
     bound_by, library_ms; for K1 and K2 also wrapper_ms and their
     large-map reading; for K3 also its fp32-core bound and its time at
-    each row count);
+    each row count; for K2 and K3 also their launches in the sensor
+    rollout);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -63,6 +69,8 @@ TRAIN_ITERS = 3  # timed PPO iterations, after one warm-up
 KERNEL_REPS = 100  # launches per device-time reading of K1 and K2
 PLAIN_WORLDS = 16  # large map: worlds held against the plain versions
 DENSE_WORLDS = 64  # worlds of the dense (uncompacted) training iteration
+SENSOR_STEPS = 3  # timed rollout steps with every sensor, after one warm-up
+SENSOR_CPU_WORLDS = 4  # worlds whose sensors are held against the CPU
 
 
 class CheckFailed(Exception):
@@ -436,6 +444,151 @@ def train_phase(env, scenes, gen) -> dict:
     return k4
 
 
+def take_worlds(obj, n: int, device):
+    """A Scene or SimState cut to its first n worlds, on ``device``."""
+    import dataclasses
+
+    return type(obj)(**{
+        f.name: None if v is None
+        else take_worlds(v, n, device) if dataclasses.is_dataclass(v)
+        else v[:n].to(device)
+        for f in dataclasses.fields(obj)
+        for v in (getattr(obj, f.name),)})
+
+
+def check_rows(name, outs, valid) -> None:
+    """Every output of a sensor finite, zero on the rows of agents that
+    were not created, and not all zero on the others; read from per-row
+    extremes, without a copy of a 10 GB output."""
+    import torch
+
+    for t in outs:
+        hi, lo = t.flatten(2).amax(-1), t.flatten(2).amin(-1)
+        check(bool(torch.isfinite(hi.float()).all()
+                   and torch.isfinite(lo.float()).all()),
+              f"{name}: not finite")
+        nz = (hi != 0) | (lo != 0)
+        check(not bool(nz[~valid].any()), f"{name}: a row of an agent that "
+              f"was not created is not zero")
+        check(bool(nz[valid].any()), f"{name}: nothing seen")
+
+
+def sensor_phase(env, policy, gen) -> dict:
+    """The lidar, BEV and camera on every step of a policy rollout over the
+    slice's worlds (K2 and K3 launched on that path), each sensor's ms per
+    call, peak memory and output floor, and the card's outputs for the first
+    SENSOR_CPU_WORLDS worlds against the same port functions on the CPU:
+    every difference must be a boundary case (utils/sensor_parity.py).
+    Returns the launches of K2 and K3 in the sensor rollout."""
+    import torch
+
+    from gpudrive_lab_torch.core import kernels
+    from gpudrive_lab_torch.core.bev import bev_observation
+    from gpudrive_lab_torch.core.lidar import lidar_observation
+    from gpudrive_lab_torch.core.render import CameraConfig, batch_render
+    from gpudrive_lab_torch.networks import fused_embed as fe
+    from gpudrive_lab_torch.rollout import rollout
+    from gpudrive_lab_torch.utils import sensor_parity
+
+    W, A = env.num_worlds, env.max_agent_count
+    n_agents = int(env.scene.num_agents.sum())
+    env.reset()
+    rollout(env, policy, 1, gen, sensors=True)  # warm-up
+    env.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.agent_road_hits_dense.launches = 0
+    kernels.agent_road_hits_tiled.launches = 0
+    fe.fused_embed_pool_fwd.launches = 0
+    t0 = time.time()
+    res = rollout(env, policy, SENSOR_STEPS, gen, sensors=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n2 = kernels.agent_road_hits_dense.launches
+    n3 = fe.fused_embed_pool_fwd.launches
+    n1 = kernels.agent_road_hits_tiled.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[sensors] {SENSOR_STEPS} rollout steps x {W} worlds with lidar, "
+          f"BEV and camera: {wall * 1e3 / SENSOR_STEPS:.3f} ms/step wall; "
+          f"sim {res.sim_ms / SENSOR_STEPS:.3f}, policy "
+          f"{res.policy_ms / SENSOR_STEPS:.3f}, "
+          + ", ".join(f"{k} {v / SENSOR_STEPS:.3f}"
+                      for k, v in res.sensor_ms.items())
+          + f" ms/step (CUDA events); agent-steps/s "
+          f"{SENSOR_STEPS * n_agents / wall:.1f}; peak memory "
+          f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before); "
+          f"launches K2 {n2} K3 {n3} K1 {n1}")
+    check(n2 > 0 and n3 > 0, "the sensor rollout did not launch K2 and K3")
+    check(bool(torch.isfinite(res.sensor_sum)) and float(res.sensor_sum) > 0,
+          f"sensor checksum {float(res.sensor_sum)}")
+    check(bool(torch.isfinite(res.rewards).all()), "sensor rollout rewards")
+
+    act = env.action_values(res.actions[-1])
+    cfg = CameraConfig()
+    calls = (("lidar", lambda: env.get_lidar_obs(act)),
+             ("bev", env.get_bev_obs),
+             ("camera", lambda: env.get_camera_obs(cfg)))
+    card, valid = {}, env.scene.agents.valid
+    for name, fn in calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        outs = out if isinstance(out, tuple) else (out,)
+        nbytes = sum(t.numel() * t.element_size() for t in outs)
+        check_rows(name, outs, valid)
+        ms = res.sensor_ms[name] / SENSOR_STEPS
+        shapes = " + ".join(str(list(t.shape)) for t in outs)
+        print(f"[sensors] {name} {shapes}: {ms:.3f} ms per call (CUDA "
+              f"events over {SENSOR_STEPS} rollout steps, output reduced "
+              f"included); peak memory "
+              f"{extra / 2**30:.3f} GiB above the {before / 2**30:.3f} GiB "
+              f"held; output {nbytes / 1e9:.4f} GB, floor "
+              f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (output bytes / 3.35 TB/s)")
+        card[name] = tuple(t[:SENSOR_CPU_WORLDS].cpu() for t in outs)
+        del out, outs
+
+    n = SENSOR_CPU_WORLDS
+    cpu = torch.device("cpu")
+    scene, state = (take_worlds(x, n, cpu) for x in (env.scene, env.state))
+    act = act[:n].cpu()
+    t0 = time.time()
+    host = {
+        "lidar": (lidar_observation(scene, state, env.params, act),),
+        "bev": (bev_observation(scene, state, env.params),),
+        "camera": batch_render(scene, state, cfg),
+    }
+    cpu_s = time.time() - t0
+    reports = {
+        "lidar": sensor_parity.lidar_diff(scene, state, act, card["lidar"][0],
+                                          host["lidar"][0], depth_tol=1e-3),
+        "bev": sensor_parity.bev_diff(scene, state, env.params,
+                                      card["bev"][0], host["bev"][0]),
+        "camera": sensor_parity.camera_diff(scene, state, cfg, card["camera"],
+                                            host["camera"], depth_tol=1e-3),
+    }
+    units = {"lidar": "samples", "bev": "cells", "camera": "pixels"}
+    for name, rep in reports.items():
+        total = card[name][0][..., 0].numel()
+        differ = sum((a != b).reshape(total, -1).any(-1)
+                     for a, b in zip(card[name], host[name]))
+        differ = int((differ > 0).sum())
+        print(f"[sensors] card against CPU, {n} worlds, {name}: "
+              f"{rep['mismatches']} mismatching {units[name]} of {total} "
+              f"({len(rep['unexplained'])} not a boundary case); "
+              f"{differ} differ in any bit")
+        for u in rep["unexplained"][:5]:
+            print(f"[sensors]   {name} fault: {u}")
+        check(not rep["unexplained"], f"{name}: card and CPU differ away "
+              f"from any box edge at {len(rep['unexplained'])} {units[name]}")
+    print(f"[sensors] the CPU took {cpu_s:.1f} s for the {n} worlds")
+    return {"K2": n2, "K3": n3}
+
+
 def main() -> int:
     import torch
 
@@ -764,6 +917,11 @@ def main() -> int:
     print(f"[small] 10 argmax steps on 4 worlds: card and CPU agree "
           f"(obs max abs diff {worst:.3g})")
 
+    # ---- the sensor phase: lidar, BEV and camera on the slice's worlds -----
+    del genv, cenv, cpol
+    for key, n in sensor_phase(env, policy, gen).items():
+        results[key]["sensor_launches"] = n
+
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
     # each launch costs the host more, and the launch-bound train iterations
@@ -798,8 +956,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "parity",
             "shape")})
         line["kernels"][-1].update({k: r[k] for k in (
-            "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows")
-            if k in r})
+            "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
+            "sensor_launches") if k in r})
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

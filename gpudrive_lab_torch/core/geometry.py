@@ -25,6 +25,15 @@ def angle_add(lhs, rhs):
     return normalize_angle(lhs + rhs)
 
 
+def yaw_to_quat_wxyz(yaw: torch.Tensor) -> torch.Tensor:
+    """Quat::angleAxis(yaw, up) as (w, x, y, z), for the absolute
+    observation export (reference: src/types.hpp:389-406)."""
+    half = 0.5 * yaw
+    zeros = torch.zeros_like(yaw)
+    return torch.stack([torch.cos(half), zeros, zeros, torch.sin(half)],
+                       dim=-1)
+
+
 def quat_yaw_diff(yaw_a, yaw_b):
     """Wrapped yaw difference b - a, as quatToYaw of quat(a)^-1 * quat(b)
     (reference: src/utils.hpp:20-25)."""

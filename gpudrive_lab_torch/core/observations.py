@@ -18,7 +18,11 @@ from __future__ import annotations
 import torch
 
 from gpudrive_lab_torch import constants as C
-from gpudrive_lab_torch.core.geometry import quat_yaw_diff, rotate_into_frame
+from gpudrive_lab_torch.core.geometry import (
+    quat_yaw_diff,
+    rotate_into_frame,
+    yaw_to_quat_wxyz,
+)
 from gpudrive_lab_torch.core.types import (
     Params,
     RoadObsAlgorithm,
@@ -286,3 +290,42 @@ def agent_map_observations(
     # Padded ego agents: MapObservation::zero() rows
     # (src/level_gen.cpp:315-318).
     return torch.where(ego_valid[..., None, None], out, _map_filler(dev))
+
+
+def map_observation(scene: Scene) -> torch.Tensor:
+    """[W, R, 9] world-frame (demeaned) MapObservation rows, the per-road
+    static export (reference: src/level_gen.hpp:59-65).  Padding rows are
+    MapObservation::zero()."""
+    roads = scene.roads
+    feats = torch.cat(
+        [
+            roads.pos[..., 0:2],
+            roads.scale,
+            roads.yaw[..., None],
+            roads.etype.to(torch.float32)[..., None],
+            roads.rid.to(torch.float32)[..., None],
+            roads.map_type.to(torch.float32)[..., None],
+        ],
+        dim=-1,
+    )
+    return torch.where(roads.valid[..., None], feats,
+                       _map_filler(feats.device))
+
+
+def absolute_self_observation(scene: Scene, state: SimState) -> torch.Tensor:
+    """[W, A, 14]: pos(3), quat wxyz(4), yaw, goal(2), size(3), id
+    (reference: src/sim.cpp:769-783; src/types.hpp:389-406)."""
+    agents = scene.agents
+    obs = torch.cat(
+        [
+            state.pos,
+            state.z[..., None],
+            yaw_to_quat_wxyz(state.yaw),
+            state.yaw[..., None],
+            agents.goal,
+            agents.size,
+            agents.aid.to(torch.float32)[..., None],
+        ],
+        dim=-1,
+    )
+    return torch.where(agents.valid[..., None], obs, 0.0)

@@ -1,10 +1,10 @@
 """Environment configuration (port of ``gpudrive_lab_tpu/env/config.py``).
 
 ``EnvConfig`` holds the options of the reference's env config (reference:
-gpudrive/env/config.py) that the port reads, or refuses when set (lidar,
-BEV, stacking, warm-up, VBD).  The other options (dataset selection,
-rendering, lidar and road-graph sizes, reward-conditioning bounds, VBD
-weights) arrive with the code that reads them.  Action grids are numpy and
+gpudrive/env/config.py) that the port reads, or refuses when set (VBD,
+reward conditioning).  The other options (dataset selection, rendering,
+road-graph sizes, reward-conditioning bounds, VBD weights) arrive with the
+code that reads them.  Action grids are numpy and
 become lookup-table tensors inside the env.
 """
 
@@ -47,6 +47,10 @@ class EnvConfig:
     disable_classic_obs: bool = False
 
     max_controlled_agents: int = C.MAX_AGENTS
+
+    # Rays per lidar plane (reference: src/consts.hpp:37); read by
+    # GPUDriveTorchEnv.get_lidar_obs.
+    num_lidar_samples: int = C.NUM_LIDAR_SAMPLES
 
     # Reward weights: R = a*collided + b*goal_achieved + c*off_road
     collision_weight: float = 0.0

@@ -6,13 +6,15 @@ the env's device; a per-world reset is a masked select.  The env keeps the
 Scene, the SimState, the per-world clocks and the reward weights.
 
 ``init_steps`` > 0 warms every reset up with that many steps of expert log
-playback (``expert_log_playback``), as the JAX env does.
+playback (``expert_log_playback``), as the JAX env does.  ``num_stack`` > 1
+stacks that many consecutive observations along the feature axis.  The
+sensors come from ``get_lidar_obs``, ``get_bev_obs`` and ``get_camera_obs``
+(core/lidar.py, core/bev.py, core/render.py).
 
-Not ported yet (they raise if a config asks for them): lidar, BEV and camera
-observations, VBD, stacked observations, reward conditioning (its weights are
-resampled on the host at every reset), ``swap_data_batch``,
-``remove_agents_by_id`` and the dataset loader; the env takes
-``scene_paths``.
+Not ported yet (they raise if a config asks for them): VBD and reward
+conditioning (its weights are resampled on the host at every reset); also
+``swap_data_batch``, ``remove_agents_by_id`` and the dataset loader (the env
+takes ``scene_paths``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ import torch
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core import observations as obsmod
 from gpudrive_lab_torch.core import step as stepmod
+from gpudrive_lab_torch.core.bev import bev_observation
+from gpudrive_lab_torch.core.lidar import lidar_observation
+from gpudrive_lab_torch.core.render import CameraConfig, batch_render
 from gpudrive_lab_torch.core.types import Params, Scene, SimState
 from gpudrive_lab_torch.env.config import EnvConfig
 from gpudrive_lab_torch.scene.compiler import build_scene
@@ -266,10 +271,7 @@ class GPUDriveTorchEnv:
     ):
         unsupported = [
             name for name, on in (
-                ("lidar_obs", config.lidar_obs),
-                ("bev_obs", config.bev_obs),
                 ("use_vbd", config.use_vbd),
-                ("num_stack > 1", config.num_stack > 1),
                 ("distance_to_vdb_trajs",
                  config.reward_type == "distance_to_vdb_trajs"),
                 ("reward_conditioned",
@@ -299,7 +301,7 @@ class GPUDriveTorchEnv:
             partner_obs=config.partner_obs and classic,
             norm_obs=config.norm_obs,
         )
-        self.observation_dim = self.spec.obs_dim
+        self.observation_dim = self.spec.obs_dim * config.num_stack
         self._build_action_table()
 
         self.reward_weights = self._default_reward_weights()
@@ -309,6 +311,7 @@ class GPUDriveTorchEnv:
         self.state: SimState = None
         self._fresh: SimState = None
         self._fresh_clock: torch.Tensor = None
+        self.stacked_obs: torch.Tensor = None
         self.partner_mask = None
         self.road_mask = None
         self.reset()
@@ -369,7 +372,7 @@ class GPUDriveTorchEnv:
             mask[torch.as_tensor(env_idx_list, dtype=torch.long,
                                  device=self.device)] = True
             self.reset_worlds(mask)
-        return self.get_obs()
+        return self.get_obs(reset=True)
 
     def reset_worlds(self, mask: torch.Tensor):
         """Reset the worlds where ``mask`` [W] bool is set, as a per-world
@@ -384,13 +387,23 @@ class GPUDriveTorchEnv:
             mask, self._fresh_clock, self.world_time_steps)
 
     def step_dynamics(self, actions):
-        """reference: env_torch.py:606-613.  ``actions`` is [W, A] (or
-        [W, A, 1]) discrete indices into the action table, or
-        [W, A, <=10] raw action values; None steps with zero actions."""
+        """reference: env_torch.py:606-613.  ``actions`` in any form that
+        ``action_values`` takes."""
+        self.state = stepmod.step(self.scene, self.state,
+                                  self.action_values(actions), self.params)
+        any_done = ((self.state.done != 0) & self.scene.agents.valid).any(1)
+        self.world_time_steps = torch.where(
+            any_done, self.world_time_steps, self.world_time_steps + 1
+        )
+
+    def action_values(self, actions) -> torch.Tensor:
+        """[W, A, 10] action-union rows of what ``step_dynamics`` takes:
+        [W, A] (or [W, A, 1]) discrete indices into the action table, or
+        [W, A, <=10] raw action values; None gives zero actions."""
         W, A = self.num_worlds, self.max_agent_count
         if actions is None:
-            actions = torch.zeros((W, A, C.ACTION_DIM), dtype=torch.float32,
-                                  device=self.device)
+            return torch.zeros((W, A, C.ACTION_DIM), dtype=torch.float32,
+                               device=self.device)
         actions = torch.as_tensor(actions, device=self.device)
         if actions.shape[1] > A:  # full-128 callers: rows >= A are pads
             actions = actions[:, :A]
@@ -406,23 +419,30 @@ class GPUDriveTorchEnv:
             act = torch.zeros((W, A, C.ACTION_DIM), dtype=torch.float32,
                               device=self.device)
             act[..., :3] = self.action_keys[idx]
-        else:
-            act = actions.to(torch.float32)
-            pad = C.ACTION_DIM - act.shape[-1]
-            if pad:
-                act = torch.cat([act, act.new_zeros(act.shape[:-1] + (pad,))],
-                                dim=-1)
-        self.state = stepmod.step(self.scene, self.state, act, self.params)
-        any_done = ((self.state.done != 0) & self.scene.agents.valid).any(1)
-        self.world_time_steps = torch.where(
-            any_done, self.world_time_steps, self.world_time_steps + 1
-        )
+            return act
+        act = actions.to(torch.float32)
+        pad = C.ACTION_DIM - act.shape[-1]
+        if pad:
+            act = torch.cat([act, act.new_zeros(act.shape[:-1] + (pad,))],
+                            dim=-1)
+        return act
 
-    def get_obs(self) -> torch.Tensor:
+    def get_obs(self, reset: bool = False) -> torch.Tensor:
+        """The flat observation [W, A, D]; with ``num_stack`` n > 1 the last
+        n of them side by side [W, A, n * D], oldest first, the stack
+        zeroed when ``reset`` (env_jax.py:629-657)."""
         obs, self.partner_mask, self.road_mask = flat_observation(
             self.scene, self.state, self.params, self.spec,
             self.reward_weights,
         )
+        n = self.config.num_stack
+        if n > 1:
+            if reset or self.stacked_obs is None:
+                self.stacked_obs = obs.new_zeros(
+                    obs.shape[:-1] + (obs.shape[-1] * n,))
+            self.stacked_obs = torch.cat(
+                [self.stacked_obs[..., obs.shape[-1]:], obs], dim=-1)
+            return self.stacked_obs
         return obs
 
     def get_rewards(self) -> torch.Tensor:
@@ -452,6 +472,27 @@ class GPUDriveTorchEnv:
 
     def get_road_mask(self):
         return self.road_mask
+
+    def get_lidar_obs(self, actions=None) -> torch.Tensor:
+        """[W, A, 3, S, 4] lidar samples (reference: env_torch.py:898-924).
+        ``actions`` (any form ``step_dynamics`` takes) supply the head angle
+        of controlled agents; None gives zeros, as the JAX env passes."""
+        return lidar_observation(
+            self.scene, self.state, self.params, self.action_values(actions),
+            num_samples=self.config.num_lidar_samples,
+        )
+
+    def get_bev_obs(self) -> torch.Tensor:
+        """[W, A, RES, RES, 1] entity-type grid (reference:
+        env_torch.py:926-945)."""
+        return bev_observation(self.scene, self.state, self.params)
+
+    def get_camera_obs(self, camera_config: Optional[CameraConfig] = None):
+        """Per-agent camera tensors (rgb [W, A, H, Wpx, 4] uint8, depth
+        [W, A, H, Wpx, 1] float32), the batch renderer's exports
+        (reference: mgr.cpp:922-948)."""
+        return batch_render(self.scene, self.state,
+                            camera_config or CameraConfig())
 
     def world_done(self) -> torch.Tensor:
         """[W] bool: every created agent of the world is done."""

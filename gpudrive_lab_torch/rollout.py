@@ -2,7 +2,10 @@
 
 Each step: get the observation, run the policy, sample actions, step the
 dynamics, compute rewards and dones, and reset the finished worlds as a
-per-world select.  This is what the JAX package's
+per-world select.  With ``sensors`` every step also collects the lidar
+(with the step's actions), the BEV grid and the camera views of the stepped
+state, as ``bench.py --lidar --bev --camera`` does, and reduces each whole
+output into a checksum.  This is what the JAX package's
 ``examples/03_policy_rollout.py`` and ``agents/policy_actor.py`` do, with
 every tensor staying on the env's device.
 
@@ -71,6 +74,10 @@ class RolloutResult:
     dones: torch.Tensor  # [S, W, A] float32, before the worlds' reset
     sim_ms: float  # total time in observation, step, rewards and reset
     policy_ms: float  # total time in the policy forward and sampling
+    # with sensors: total time in each sensor (lidar, bev, camera), its
+    # output reduced included, and the sum of every sensor output
+    sensor_ms: dict | None = None
+    sensor_sum: torch.Tensor | None = None
 
 
 class _Clock:
@@ -97,38 +104,57 @@ def rollout(
     steps: int,
     generator: torch.Generator | None,
     deterministic: bool = False,
+    sensors: bool = False,
 ) -> RolloutResult:
     """Run ``steps`` env steps from the env's current state with actions
     sampled from ``policy`` (argmax when ``deterministic``).  ``generator``
-    draws the samples and lives on the env's device."""
+    draws the samples and lives on the env's device.  ``sensors`` also
+    collects the lidar, BEV and camera observations on every step."""
     W, A = env.num_worlds, env.max_agent_count
     clock = _Clock(env.device)
     actions, rewards, dones, marks = [], [], [], []
+    acc = torch.zeros((), dtype=torch.float32, device=env.device)
     with torch.no_grad():
         for _ in range(steps):
-            m0 = clock.mark()
+            m = [clock.mark()]
             obs = env.get_obs()
-            m1 = clock.mark()
+            m.append(clock.mark())
             logits, _ = policy(obs.reshape(W * A, -1))
             action, _, _ = sample_logits(
                 generator, logits, deterministic=deterministic
             )
-            m2 = clock.mark()
-            env.step_dynamics(action.reshape(W, A))
+            m.append(clock.mark())
+            act = env.action_values(action.reshape(W, A))
+            env.step_dynamics(act)
             rewards.append(env.get_rewards())
             dones.append(env.get_dones())
+            m.append(clock.mark())
+            if sensors:
+                acc = acc + env.get_lidar_obs(act)[..., 0].sum()
+                m.append(clock.mark())
+                acc = acc + env.get_bev_obs().sum()
+                m.append(clock.mark())
+                rgb, depth = env.get_camera_obs()
+                acc = acc + depth.sum() + rgb[..., 0].sum(dtype=torch.float32)
+                del rgb, depth
+                m.append(clock.mark())
             env.reset_worlds(env.world_done())
-            m3 = clock.mark()
+            m.append(clock.mark())
             actions.append(action.reshape(W, A))
-            marks.append((m0, m1, m2, m3))
+            marks.append(m)
     if clock.cuda:
         torch.cuda.synchronize(env.device)
-    sim_ms = sum(clock.ms(a, b) + clock.ms(c, d) for a, b, c, d in marks)
-    policy_ms = sum(clock.ms(b, c) for _, b, c, _ in marks)
+    span = lambda i: sum(clock.ms(m[i], m[i + 1]) for m in marks)
+    sensor_ms = None
+    if sensors:
+        sensor_ms = {k: span(3 + i)
+                     for i, k in enumerate(("lidar", "bev", "camera"))}
     return RolloutResult(
         actions=torch.stack(actions) if actions else None,
         rewards=torch.stack(rewards) if rewards else None,
         dones=torch.stack(dones) if dones else None,
-        sim_ms=sim_ms,
-        policy_ms=policy_ms,
+        sim_ms=span(0) + span(2) + span(6 if sensors else 3),
+        policy_ms=span(1),
+        sensor_ms=sensor_ms,
+        sensor_sum=acc if sensors else None,
     )

@@ -81,6 +81,25 @@ def state_to_jax(state: ttypes.SimState) -> jtypes.SimState:
     return to_jax(state, jtypes.SimState)
 
 
+def to_torch(obj, cls):
+    """A JAX package struct -> the port's tensor dataclass ``cls``, field
+    by field through numpy (the inverse of ``to_jax``)."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        if v is None:
+            out[f.name] = None
+        elif dataclasses.is_dataclass(v):
+            out[f.name] = to_torch(v, getattr(ttypes, type(v).__name__))
+        else:
+            out[f.name] = torch.from_numpy(np.array(v))
+    return cls(**out)
+
+
+def scene_to_torch(scene) -> ttypes.Scene:
+    return to_torch(scene, ttypes.Scene)
+
+
 def state_to_torch(state) -> ttypes.SimState:
     return ttypes.SimState(**{
         f.name: torch.from_numpy(np.array(getattr(state, f.name)))
