@@ -13,8 +13,10 @@ it (65,536, 35,328 and 4,416), drives the main paths (a 91-step late-fusion
 policy rollout over the 512 worlds of data/pool_v3 with 128 agent rows; 10
 steps of the padded 2048-road tiled path; PPO training over the same 512
 worlds through build_trainer, with a checkpoint round trip and one dense
-iteration), holds K1 and K2 on a seeded synthetic large map (10,240 roads,
-scene/large_map.py; phase 4), runs the sensors (lidar, BEV and camera on
+iteration; then PPO with the bf16 policy dtype, K3 and K4 in their bf16
+compute mode, on the same worlds: phase 5b), holds K1 and K2 on a seeded
+synthetic large map (10,240 roads, scene/large_map.py; phase 4), runs the
+sensors (lidar, BEV and camera on
 every step of a policy rollout over the same 512 worlds, then each sensor
 against the same port function on the CPU for the first 4 worlds: the
 sensor phase), checks the outputs, and prints:
@@ -31,7 +33,8 @@ sensor phase), checks the outputs, and prints:
     breakdown of one profiled train iteration, and per sensor its ms per
     call (CUDA events), its peak memory, its output's bytes / 3.35 TB/s as
     a floor and the samples, cells or pixels where card and CPU differ;
-  * one JSON line with every kernel (name, route, source, the TPU kernel it
+  * one JSON line with every kernel (K1, K2, K3, K4, and K3 and K4 in
+    their bf16 compute mode: name, route, source, the TPU kernel it
     replaces, launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
     bound_by, library_ms; for K1 and K2 also wrapper_ms and their
     large-map reading; for K3 also its fp32-core bound and its time at
@@ -54,13 +57,16 @@ import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
 # fp32 operations/s outside the tensor cores (an FMA counted as two), and
-# TF32 tensor-core operations/s (K3's products run there, three passes each
-# in 3xTF32).  K1 and K2 build with --fmad=false: each multiply and add is
-# its own instruction, so their rate is half the FMA rate.
+# TF32 and bf16 tensor-core operations/s.  K3's float32 products run on
+# TF32, three passes each in 3xTF32; the bf16 mode's products are bf16 x
+# bf16, which the card's bf16 tensor-core rate bounds whatever unit a
+# kernel runs them on.  K1 and K2 build with --fmad=false: each multiply
+# and add is its own instruction, so their rate is half the FMA rate.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_FP32_NOFMA = 33.5e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 
 SEED = 0
 STEPS = 91
@@ -71,6 +77,18 @@ PLAIN_WORLDS = 16  # large map: worlds held against the plain versions
 DENSE_WORLDS = 64  # worlds of the dense (uncompacted) training iteration
 SENSOR_STEPS = 3  # timed rollout steps with every sensor, after one warm-up
 SENSOR_CPU_WORLDS = 4  # worlds whose sensors are held against the CPU
+# K3/K4 in the bf16 compute mode against their plain bf16 versions: both
+# sum exact bf16 products in float32, in another order, so a float32 value
+# they round to bf16 (t before layer 2) can land on either side of a
+# rounding boundary.  Every pooled entry within BF16_FLIPS such flips
+# (fused_embed.bf16_flip_bound each), at most 1% of entries beyond 1e-5,
+# the kernel's winner within that bar of the plain maximum, the argmax equal
+# where the top two differ by more than twice it; K4's db1, dg, dbe, db2
+# within 1e-4 of their largest magnitude, dw1 and dw2 (products of
+# bf16-rounded dpre and t) within fused_embed.BF16_PRODUCT_BAR of their
+# terms' root-sum-square, a bar that controls skipping a rounding must
+# exceed (k4_bf16_check).
+BF16_FLIPS = 4
 
 
 class CheckFailed(Exception):
@@ -83,12 +101,13 @@ def check(ok: bool, what: str) -> None:
 
 
 def bound(nbytes: float, flops: float, tf32_flops: float = 0.0,
-          fp32_peak: float = PEAK_FP32):
+          fp32_peak: float = PEAK_FP32, bf16_flops: float = 0.0):
     """Least time in ms for ``nbytes`` of traffic, ``flops`` fp32 operations
-    at ``fp32_peak`` and ``tf32_flops`` tensor-core operations, and what
-    sets it."""
+    at ``fp32_peak``, ``tf32_flops`` TF32 and ``bf16_flops`` bf16
+    tensor-core operations, and what sets it."""
     t_b = nbytes / PEAK_BYTES
-    t_f = max(flops / fp32_peak, tf32_flops / PEAK_TF32)
+    t_f = max(flops / fp32_peak, tf32_flops / PEAK_TF32,
+              bf16_flops / PEAK_BF16)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -144,6 +163,122 @@ def twice(fn, what: str):
     first, second = fn(), fn()
     check(torch.equal(first, second), f"{what}: two launches differ")
     return first
+
+
+def k3_bf16_check(x, w, what: str) -> float:
+    """K3 in its bf16 compute mode on x (float32 or bf16, as stored)
+    against its plain bf16 version at the bars of BF16_FLIPS, two launches
+    bitwise equal.  Returns the pooled max abs error."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    bf = torch.bfloat16
+    pooled, arg = fe.fused_embed_pool_fwd(x, *w, "tanh", bf)
+    again, arg2 = fe.fused_embed_pool_fwd(x, *w, "tanh", bf)
+    check(torch.equal(pooled, again) and torch.equal(arg, arg2),
+          f"K3-bf16 {what}: two launches differ")
+    y = fe._embed(x, *w, "tanh", bf)  # [B, E, 64] plain activations
+    want = y.amax(dim=1)
+    bar = BF16_FLIPS * fe.bf16_flip_bound("tanh", w[2], w[3], w[4])
+    err = (pooled - want).abs()
+    loose = float((err > 1e-5).float().mean())
+    picked = torch.gather(y, 1, arg.long()[:, None]).squeeze(1)
+    pick_err = float((want - picked).abs().max())
+    top2 = y.topk(2, dim=1)
+    clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * bar
+    arg_ok = torch.equal(arg.long()[clear], top2.indices[:, 0][clear])
+    n_clear = int(clear.sum())
+    del y, top2, picked
+    emax = float(err.max())
+    check(emax <= bar, f"K3-bf16 {what}: pooled max abs err {emax} > {bar}")
+    check(loose <= 0.01, f"K3-bf16 {what}: {loose:.4f} of the entries "
+          f"beyond 1e-5")
+    check(pick_err <= bar, f"K3-bf16 {what}: the kernel's winner is "
+          f"{pick_err} below the plain maximum")
+    check(arg_ok, f"K3-bf16 {what}: argmax differs where the top two "
+          f"differ by more than {2 * bar:.3g}")
+    print(f"[K3-bf16] {what} {list(x.shape)} {str(x.dtype)[6:]}: max abs "
+          f"err {emax:.3g} (bar {bar:.3g}), {loose:.2e} of entries beyond "
+          f"1e-5, argmax equal on {n_clear}/{clear.numel()} clear units, "
+          f"two launches bitwise equal")
+    return emax
+
+
+def k3_bf16_time(x, w):
+    """(ms, bound ms, bound by) of K3's bf16 mode on x: x read at its
+    stored width, the bf16 products at the bf16 tensor-core rate, the rest
+    of embed_flops on the fp32 cores."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    B, Ent, F = x.shape
+    ms = time_ms(lambda: fe.fused_embed_pool_fwd(x, *w, "tanh",
+                                                 torch.bfloat16), 20)
+    nbytes = (x.element_size() * B * Ent * F
+              + 4 * (F * 64 + 64 * 64 + 4 * 64) + 8 * B * 64)
+    mma = B * Ent * fe.embed_mma_flops(F)
+    bms, by = bound(nbytes, B * Ent * fe.embed_flops(F) - mma,
+                    bf16_flops=mma)
+    return ms, bms, by
+
+
+def k4_bf16_check(x, w, arg, dpool, what: str) -> tuple[float, dict]:
+    """K4 in its bf16 compute mode against its plain bf16 version, two
+    launches bitwise equal: db1, dg, dbe, db2 within 1e-4 of their largest
+    magnitude; dw1 and dw2 within fused_embed.BF16_PRODUCT_BAR of their
+    terms' root-sum-square.  The controls on the same inputs, K4's float32
+    mode and the plain version with t or dpre left unrounded, must exceed
+    that bar on the gradient whose rounding they skip.  Returns (max abs
+    error, the dw1/dw2 readings of the kernel and of each control)."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    bf = torch.bfloat16
+    got = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh", bf)
+    again = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh", bf)
+    want = fe.reference_embed_pool_bwd(x, *w, arg, dpool, "tanh", bf)
+    rss = fe.bwd_product_rss(x, *w, arg, dpool, "tanh", bf)
+    bar = fe.BF16_PRODUCT_BAR
+    names = ("dw1", "db1", "dg", "dbe", "dw2", "db2")
+    err, reading = 0.0, {}
+    for gname, a, b, c in zip(names, got, again, want):
+        check(torch.equal(a, b), f"K4-bf16 {what} {gname}: two launches "
+              f"differ")
+        e = float((a - c).abs().max())
+        err = max(err, e)
+        if gname in ("dw1", "dw2"):
+            reading[f"kernel {gname}"] = r = fe.bf16_product_error(
+                a, c, rss[gname == "dw2"])
+            check(r <= bar, f"K4-bf16 {what} {gname}: {r:.3g} of the terms'"
+                  f" root-sum-square > {bar:.3g}")
+        else:
+            rel = e / max(float(c.abs().max()), 1e-30)
+            check(rel <= 1e-4, f"K4-bf16 {what} {gname}: max abs err "
+                  f"{rel:.3g} of the gradient's max abs value > 1e-4")
+    controls = {
+        "float32 mode": (fe.fused_embed_pool_bwd(x.float(), *w, arg, dpool,
+                                                 "tanh"), ("dw1", "dw2")),
+        "t unrounded": (fe.reference_embed_pool_bwd(
+            x, *w, arg, dpool, "tanh", bf, unrounded=("t",)), ("dw2",)),
+        "dpre unrounded": (fe.reference_embed_pool_bwd(
+            x, *w, arg, dpool, "tanh", bf, unrounded=("dpre",)), ("dw1",)),
+    }
+    for cname, (grads, skipped) in controls.items():
+        for gname in skipped:
+            i = names.index(gname)
+            reading[f"{cname} {gname}"] = r = fe.bf16_product_error(
+                grads[i], want[i], rss[gname == "dw2"])
+            check(r > bar, f"K4-bf16 {what}: the control ({cname}) reads "
+                  f"{r:.3g} on {gname}, within the bar {bar:.3g}")
+    print(f"[K4-bf16] {what} {list(x.shape)} {str(x.dtype)[6:]}: max abs err "
+          f"{err:.3g}; dw1/dw2 error over the terms' root-sum-square (bar "
+          f"{bar:.3g}): " + ", ".join(f"{k} {v:.3g}"
+                                      for k, v in reading.items())
+          + "; two launches bitwise equal")
+    return err, reading
 
 
 def large_map_phase(kernels, dev) -> dict:
@@ -204,12 +339,14 @@ def large_map_phase(kernels, dev) -> dict:
     return out
 
 
-def k4_check(ppo, env, traj, gen) -> dict:
+def k4_check(ppo, env, traj, gen) -> tuple[dict, float]:
     """K4 against its plain version at the update's minibatch shapes: the
     partner and road slices, taken in place, of the observation that the
     update recomputes for one minibatch (rollout_len / num_minibatches
     steps of the flat compacted rows), with the argmax K3 gives on them
-    and a random pooled cotangent."""
+    and a random pooled cotangent.  K4's bf16 mode is held on the same
+    float32 x beside it.  Returns K4's record and K4-bf16's max abs error
+    on float32 x."""
     import torch
 
     from gpudrive_lab_torch.env.env_torch import flat_observation
@@ -240,6 +377,7 @@ def k4_check(ppo, env, traj, gen) -> dict:
               parity="each gradient's max abs err <= 1e-4 x its max abs "
                      "value; two launches bitwise equal")
     worst_bound = {}
+    bf16_err = 0.0
     with torch.no_grad():
         for bname, (emb, x) in blocks.items():
             lin1, ln, _, _, lin2 = emb
@@ -261,6 +399,13 @@ def k4_check(ppo, env, traj, gen) -> dict:
             del want
             check(rel <= 1e-4, f"K4 {bname}: max abs err {rel:.3g} of the "
                   f"gradient's max abs value")
+            _, barg = fe.fused_embed_pool_fwd(x, *w, "tanh", torch.bfloat16)
+            bf16_err = max(bf16_err, k4_bf16_check(
+                x, w, barg, dpool, f"{bname} minibatch, float32 x")[0])
+            bms16 = time_ms(lambda: fe.fused_embed_pool_bwd(
+                x, *w, barg, dpool, "tanh", torch.bfloat16), 20)
+            print(f"[K4-bf16] {bname} float32 x, K3-bf16's argmax: kernel "
+                  f"{bms16:.4f} ms (float32 mode on the same x below)")
             B, Ent, F = x.shape
             winners = int(fe.winner_table(arg, Ent)[0].sum())
             ms = time_ms(lambda: fe.fused_embed_pool_bwd(
@@ -283,15 +428,48 @@ def k4_check(ppo, env, traj, gen) -> dict:
     n = obs.shape[0]
     k4["shape"] = (f"partner [{n},127,6] + road [{n},200,13] per "
                    "minibatch backward")
-    return k4
+    return k4, bf16_err
 
 
-def train_phase(env, scenes, gen) -> dict:
+def timed_iteration(ppo, env, carry, fresh, what: str):
+    """One PPO iteration that must not wait on the card, timed: (carry,
+    samples, wall s, (rollout, gae, update) ms from CUDA events, the mean
+    losses)."""
+    import torch
+
+    rw = env.reward_weights
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t0 = time.time()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev[0].record()
+        carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
+        ev[1].record()
+        batch = ppo.prepare(env.scene, carry, traj, rw)
+        ev[2].record()
+        losses = ppo.learn(env.scene, batch, traj, rw)
+        ev[3].record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    samples = float(ppo.episode_metrics(traj)["samples"])
+    check(samples == float(traj.mask.sum()) > 0,
+          f"{what}: samples {samples} != mask sum")
+    loss = {k: v.mean().item() for k, v in losses.items()}
+    check(all(torch.isfinite(v).all() for v in losses.values()),
+          f"{what}: a loss is not finite: {loss}")
+    return (carry, samples, wall,
+            tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3)), loss)
+
+
+def train_phase(env, scenes, gen) -> tuple[dict, float, dict]:
     """PPO on the slice's 512 worlds through build_trainer: one warm-up
     iteration, K4 against its plain version, TRAIN_ITERS timed iterations
     with the launch counts read around them, one iteration under
     torch.profiler, a checkpoint round trip, and one dense iteration on the
-    first DENSE_WORLDS worlds.  Returns K4's kernel record."""
+    first DENSE_WORLDS worlds.  Returns K4's kernel record, K4-bf16's error
+    on float32 x (k4_check) and the timed iterations' summary."""
     import dataclasses
     import tempfile
 
@@ -326,51 +504,36 @@ def train_phase(env, scenes, gen) -> dict:
     # warm-up iteration; its trajectory feeds the kernel check
     carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
     global_step = float(ppo.update(env.scene, carry, traj, rw)["samples"])
-    k4 = k4_check(ppo, env, traj, gen)
+    k4, k4_bf16_f32x_err = k4_check(ppo, env, traj, gen)
     del traj
 
     before = [p.detach().clone() for p in ppo.policy.parameters()]
     torch.cuda.synchronize()
-    fe.fused_embed_pool_bwd.launches = 0
-    fe.fused_embed_pool_fwd.launches = 0
-    rates = []
+    for f in (fe.fused_embed_pool_fwd, fe.fused_embed_pool_bwd):
+        f.launches = f.bf16_launches = 0
+    rates, splits = [], []
     for it in range(TRAIN_ITERS):
         n0 = fe.fused_embed_pool_bwd.launches
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        t0 = time.time()
-        # the iteration never waits on the card: a synchronizing operation
-        # inside it raises
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            ev[0].record()
-            carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
-            ev[1].record()
-            batch = ppo.prepare(env.scene, carry, traj, rw)
-            ev[2].record()
-            losses = ppo.learn(env.scene, batch, traj, rw)
-            ev[3].record()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        samples = float(ppo.episode_metrics(traj)["samples"])
-        check(samples == float(traj.mask.sum()) > 0,
-              f"iteration {it}: samples {samples} != mask sum")
-        loss = {k: v.mean().item() for k, v in losses.items()}
-        check(all(torch.isfinite(v).all() for v in losses.values()),
-              f"iteration {it}: a loss is not finite: {loss}")
+        carry, samples, wall, split, loss = timed_iteration(
+            ppo, env, carry, fresh, f"iteration {it}")
         n4 = fe.fused_embed_pool_bwd.launches - n0
         check(n4 == per_iter, f"iteration {it}: K4 launched {n4} times, "
               f"expected {per_iter}")
         global_step += samples
         rates.append(samples / wall)
-        print(f"[train] iteration {it}: rollout {ev[0].elapsed_time(ev[1]):.3f}"
-              f" ms, gae {ev[1].elapsed_time(ev[2]):.3f} ms, update "
-              f"{ev[2].elapsed_time(ev[3]):.3f} ms (CUDA events); wall "
-              f"{wall * 1e3:.3f} ms, {samples:.0f} samples, train samples/s "
-              f"{samples / wall:.1f}; K4 launches {n4}; "
+        splits.append(split)
+        print(f"[train] iteration {it}: rollout {split[0]:.3f} ms, gae "
+              f"{split[1]:.3f} ms, update {split[2]:.3f} ms (CUDA events); "
+              f"wall {wall * 1e3:.3f} ms, {samples:.0f} samples, train "
+              f"samples/s {samples / wall:.1f}; K4 launches {n4}; "
               + ", ".join(f"{k} {v:.5f}" for k, v in loss.items()))
     k4["launches"] = fe.fused_embed_pool_bwd.launches
+    check(fe.fused_embed_pool_fwd.bf16_launches == 0
+          and fe.fused_embed_pool_bwd.bf16_launches == 0,
+          "the float32 iterations launched the bf16 mode")
+    summary = dict(rates=rates, splits=splits,
+                   k3_per_iter=fe.fused_embed_pool_fwd.launches / TRAIN_ITERS,
+                   k4_per_iter=k4["launches"] / TRAIN_ITERS)
     print(f"[train] {TRAIN_ITERS} iterations: mean train samples/s "
           f"{sum(rates) / len(rates):.1f}; launches K4 {k4['launches']}, "
           f"K3 {fe.fused_embed_pool_fwd.launches}")
@@ -441,7 +604,153 @@ def train_phase(env, scenes, gen) -> dict:
           f"iteration of this trainer), {dm['samples']:.0f} samples, "
           f"pg_loss {dm['pg_loss']:.5f}, v_loss {dm['v_loss']:.5f}; "
           f"K4 launches {n4}")
-    return k4
+    return k4, k4_bf16_f32x_err, summary
+
+
+def bf16_train_phase(env, gen, f32: dict) -> tuple[dict, dict]:
+    """PPO with the bf16 policy dtype on the slice's 512 worlds through
+    build_trainer, in the JAX package's production pairing (the split bf16
+    obs store, fused embed), so K3 and K4 run their bf16 mode on bf16 x:
+    one warm-up iteration; K3-bf16 on the store's x at the rollout's and a
+    minibatch's row counts and K4-bf16 on a minibatch's, against their
+    plain versions, with K4-bf16's times; TRAIN_ITERS timed iterations
+    (launch counts set to 0 before and read after, each iteration's
+    checked equal to the float32 phase's ``f32``), printed beside the
+    float32 numbers.  Returns (K3-bf16's additions, K4-bf16's record)."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+    from gpudrive_lab_torch.ppo.ppo import PPOConfig
+    from gpudrive_lab_torch.ppo.train import build_trainer
+
+    n_ctrl = int(env.scene.agents.controlled.sum())
+    cfg = PPOConfig(rollout_len=32, update_epochs=4, num_minibatches=4,
+                    fused_embed=True, compact_mode="flat",
+                    compact=-(-n_ctrl // 64) * 64, policy_dtype="bfloat16",
+                    remat_obs=False, obs_store="split",
+                    obs_store_dtype="bfloat16")
+    ppo, carry, fresh, _ = build_trainer(env, cfg, seed=SEED)
+    check(ppo.policy.config.dtype == torch.bfloat16, "policy dtype")
+    rw = env.reward_weights
+    print(f"[train bf16] {env.num_worlds} worlds, compaction to "
+          f"{cfg.compact} rows, policy_dtype bfloat16, split bfloat16 obs "
+          f"store, fused_embed; T={cfg.rollout_len}, {cfg.update_epochs} "
+          f"epochs x {cfg.num_minibatches} minibatches")
+    carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
+    check(isinstance(traj.obs, tuple)
+          and all(o.dtype == torch.bfloat16 for o in traj.obs),
+          "the obs store is not split bfloat16")
+    store = sum(o.numel() * o.element_size() for o in traj.obs)
+    print(f"[train bf16] obs store {store / 1e9:.4f} GB "
+          f"({[list(o.shape) for o in traj.obs]})")
+    ppo.update(env.scene, carry, traj, rw)
+
+    policy = ppo.policy
+    mb = cfg.rollout_len // cfg.num_minibatches
+    k3 = dict(store_err=0.0)
+    k4 = dict(name="K4-bf16 fused_embed_pool_bwd, bf16 compute mode",
+              route="cuda",
+              source="gpudrive_lab_torch/csrc/fused_embed_bwd.cu",
+              replaces="gpudrive_lab_tpu/networks/fused_embed.py:251",
+              library_ms=None, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+              max_abs_err=0.0, bar_readings={},
+              parity="db1, dg, dbe, db2 max abs err <= 1e-4 x each "
+                     "gradient's max abs value; dw1, dw2 error <= 2^-12 "
+                     "of their terms' root-sum-square, where K4's float32 "
+                     "mode and the plain version without the rounding of "
+                     "t or dpre must exceed it; two launches bitwise "
+                     "equal")
+    worst_bound = {}
+    with torch.no_grad():
+        for bname, emb, blk in (
+                ("partner", policy.partner_embed, traj.obs[1]),
+                ("road", policy.road_map_embed, traj.obs[2])):
+            lin1, ln, _, _, lin2 = emb
+            w = (lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
+                 lin2.weight.t().contiguous(), lin2.bias)
+            x = blk[:mb].reshape((-1,) + blk.shape[2:])
+            for what, xr in (("rollout step, store", blk[0]),
+                             ("minibatch, store", x)):
+                k3["store_err"] = max(k3["store_err"], k3_bf16_check(
+                    xr, w, f"{bname} {what}"))
+            _, arg = fe.fused_embed_pool_fwd(x, *w, "tanh", torch.bfloat16)
+            dpool = torch.randn(arg.shape, generator=gen, device=x.device)
+            err, k4["bar_readings"][bname] = k4_bf16_check(
+                x, w, arg, dpool, f"{bname} minibatch, store")
+            B, Ent, F = x.shape
+            winners = int(fe.winner_table(arg, Ent)[0].sum())
+            ms = time_ms(lambda: fe.fused_embed_pool_bwd(
+                x, *w, arg, dpool, "tanh", torch.bfloat16), 20)
+            plain = time_ms(lambda: fe.reference_embed_pool_bwd(
+                x, *w, arg, dpool, "tanh", torch.bfloat16), 3, warmup=1)
+            n_out = F * 64 + 64 * 64 + 4 * 64
+            mma = fe.bwd_mma_flops(F, B, winners)
+            bms, by = bound(2 * winners * F + 4 * (2 * B * 64 + 2 * n_out),
+                            fe.bwd_flops(F, B, winners) - mma,
+                            bf16_flops=mma)
+            k4["ms"] += ms
+            k4["plain_ms"] += plain
+            k4["bound_ms"] += bms
+            k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            worst_bound[bname] = by
+            print(f"[K4-bf16] {bname} [{B},{Ent},{F}] bfloat16 x: "
+                  f"{winners / B:.1f} winners per row; kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    k4["bound_by"] = worst_bound["road"]
+    n = mb * traj.obs[1].shape[1]
+    k4["shape"] = (f"partner [{n},127,6] + road [{n},200,13] bfloat16 per "
+                   "minibatch backward")
+    del traj
+
+    before = [p.detach().clone() for p in policy.parameters()]
+    torch.cuda.synchronize()
+    for f in (fe.fused_embed_pool_fwd, fe.fused_embed_pool_bwd):
+        f.launches = f.bf16_launches = 0
+    rates, splits = [], []
+    for it in range(TRAIN_ITERS):
+        n3, n4 = (fe.fused_embed_pool_fwd.bf16_launches,
+                  fe.fused_embed_pool_bwd.bf16_launches)
+        carry, samples, wall, split, loss = timed_iteration(
+            ppo, env, carry, fresh, f"bf16 iteration {it}")
+        n3 = fe.fused_embed_pool_fwd.bf16_launches - n3
+        n4 = fe.fused_embed_pool_bwd.bf16_launches - n4
+        check((n3, n4) == (f32["k3_per_iter"], f32["k4_per_iter"]),
+              f"bf16 iteration {it}: K3-bf16 {n3}, K4-bf16 {n4} launches, "
+              f"the float32 iterations {f32['k3_per_iter']}, "
+              f"{f32['k4_per_iter']}")
+        rates.append(samples / wall)
+        splits.append(split)
+        print(f"[train bf16] iteration {it}: rollout {splits[-1][0]:.3f} ms,"
+              f" gae {splits[-1][1]:.3f} ms, update {splits[-1][2]:.3f} ms "
+              f"(CUDA events); wall {wall * 1e3:.3f} ms, {samples:.0f} "
+              f"samples, train samples/s {samples / wall:.1f}; K3-bf16 "
+              f"launches {n3}, K4-bf16 {n4}; "
+              + ", ".join(f"{k} {v:.5f}" for k, v in loss.items()))
+    check(fe.fused_embed_pool_fwd.launches
+          == fe.fused_embed_pool_fwd.bf16_launches
+          and fe.fused_embed_pool_bwd.launches
+          == fe.fused_embed_pool_bwd.bf16_launches,
+          "the bf16 iterations launched the float32 mode")
+    after = list(policy.parameters())
+    check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+              for p in after), "a parameter is not finite float32")
+    check(any(not torch.equal(a, b) for a, b in zip(after, before)),
+          "bf16 training did not change the parameters")
+    k3["launches"] = fe.fused_embed_pool_fwd.bf16_launches
+    k4["launches"] = fe.fused_embed_pool_bwd.bf16_launches
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    for name, r, sp in (("float32 (phase 5)", f32["rates"], f32["splits"]),
+                        ("bfloat16", rates, splits)):
+        print(f"[train bf16] {name}: train samples/s {mean(r):.1f} (runs "
+              + ", ".join(f"{v:.1f}" for v in r) + "); rollout "
+              f"{mean([x[0] for x in sp]):.3f}, gae "
+              f"{mean([x[1] for x in sp]):.3f}, update "
+              f"{mean([x[2] for x in sp]):.3f} ms per iteration (CUDA "
+              "events, means)")
+    return k3, k4
 
 
 def take_worlds(obj, n: int, device):
@@ -724,6 +1033,21 @@ def main() -> int:
     # the update's 35,328-row minibatch and the PPO rollout's 4,416 rows
     k3_rows = {W * A: {}, 35328: {}, 4416: {}}
     worst_bound = {}
+    # K3's bf16 compute mode on the same rows, x in float32 and as a bf16
+    # store holds it; its record's ms, bound and plain time are those of a
+    # minibatch of the bf16 store (35,328 rows, bf16 x)
+    k3b = dict(name="K3-bf16 fused_embed_pool_fwd, bf16 compute mode",
+               route="cuda", source="gpudrive_lab_torch/csrc/fused_embed.cu",
+               replaces="gpudrive_lab_tpu/networks/fused_embed.py:207",
+               library_ms=None, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               max_abs_err=0.0,
+               parity=f"pooled max abs err <= {BF16_FLIPS} bf16 flips of t "
+                      "(fused_embed.bf16_flip_bound), <= 1% of entries beyond "
+                      "1e-5, the winner within that bar of the plain "
+                      "maximum, argmax equal where the top two differ by "
+                      "more than twice it; two launches bitwise equal")
+    k3b_rows = {}
+    k3b_by = {}
     with torch.no_grad():
         for bname, (emb, x) in blocks.items():
             lin1, ln, _, _, lin2 = emb
@@ -772,6 +1096,40 @@ def main() -> int:
                     line += f", plain {plain:.4f} ms"
                 print(line)
             k3["max_abs_err"] = max(k3["max_abs_err"], err)
+            for xd in (x, x.to(torch.bfloat16)):
+                dname = str(xd.dtype)[6:]
+                k3b["max_abs_err"] = max(k3b["max_abs_err"], k3_bf16_check(
+                    xd, w, f"{bname} serving rollout"))
+                for rows in k3_rows:
+                    ms, bms, by = k3_bf16_time(xd[:rows], w)
+                    k3b_rows.setdefault(f"{rows}/{dname}", {})[bname] = (
+                        ms, bms)
+                    line = (f"[K3-bf16] {bname} [{rows},{Ent},{F}] {dname} x:"
+                            f" kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+                            f"bf16 products at the bf16 tensor-core rate)")
+                    if rows == 35328 and xd.dtype == torch.bfloat16:
+                        xr = xd[:rows]
+                        plain = time_ms(lambda: fe.reference_embed_pool_argmax(
+                            xr, *w, "tanh", torch.bfloat16), 3)
+                        k3b["ms"] += ms
+                        k3b["bound_ms"] += bms
+                        k3b["plain_ms"] += plain
+                        k3b_by[bname] = by
+                        line += f", plain {plain:.4f} ms"
+                    print(line)
+            del xd, xr  # the bf16 copy: nothing of it stays on the card
+    for key, rec in k3b_rows.items():
+        print(f"[K3-bf16] partner + road at {key.replace('/', ' rows, ')} "
+              f"x: {sum(v[0] for v in rec.values()):.4f} ms, bound "
+              f"{sum(v[1] for v in rec.values()):.4f} ms")
+    k3b["ms_by_rows"] = {key: sum(v[0] for v in rec.values())
+                         for key, rec in k3b_rows.items()}
+    k3b["bound_by"] = k3b_by["road"]
+    k3b["shape"] = ("partner [35328,127,6] + road [35328,200,13] bfloat16 "
+                    "per minibatch forward; checked at 65,536 rows in "
+                    "float32 and bfloat16 x, and on the bf16 store at 4,416 "
+                    "and 35,328 rows")
+    results["K3-bf16"] = k3b
     for rows, rec in k3_rows.items():
         ms, bms, fms = (sum(v[i] for v in rec.values()) for i in range(3))
         print(f"[K3] partner + road at {rows} rows: {ms:.4f} ms, bound "
@@ -892,7 +1250,15 @@ def main() -> int:
     lrec = large_map_phase(kernels, dev)
 
     # ---- phase 5: the training path, PPO over the 512 worlds -------------
-    results["K4"] = train_phase(env, scenes, gen)
+    results["K4"], k4b_f32x_err, f32_train = train_phase(env, scenes, gen)
+
+    # ---- phase 5b: PPO with the bf16 policy dtype (K3/K4 bf16 mode) -------
+    k3b_train, results["K4-bf16"] = bf16_train_phase(env, gen, f32_train)
+    results["K3-bf16"]["launches"] = k3b_train["launches"]
+    results["K3-bf16"]["max_abs_err"] = max(results["K3-bf16"]["max_abs_err"],
+                                            k3b_train["store_err"])
+    results["K4-bf16"]["max_abs_err"] = max(results["K4-bf16"]["max_abs_err"],
+                                            k4b_f32x_err)
 
     # ---- phase 6: the card's path against the CPU path, small input ------
     small = scenes[:4]
@@ -949,7 +1315,7 @@ def main() -> int:
         results[key]["large_map"] = rec
 
     line = {"kernels": []}
-    for key in ("K1", "K2", "K3", "K4"):
+    for key in ("K1", "K2", "K3", "K4", "K3-bf16", "K4-bf16"):
         r = results[key]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -957,7 +1323,7 @@ def main() -> int:
             "shape")})
         line["kernels"][-1].update({k: r[k] for k in (
             "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
-            "sensor_launches") if k in r})
+            "sensor_launches", "bar_readings") if k in r})
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,23 @@ gradients; d/dx is not computed (the observation is data).
 
 ``fused_embed_pool_fwd`` and ``fused_embed_pool_bwd`` are the wrappers: each
 checks its inputs, allocates the outputs, launches its kernel on a CUDA
-tensor (counting launches in ``.launches``) and uses its plain version
+tensor (counting launches in ``.launches``, those of the bf16 compute mode
+also in ``.bf16_launches``) and uses its plain version
 (``reference_embed_pool_argmax``, ``reference_embed_pool_bwd``) only for CPU
 tensors.  ``fused_embed_pool`` puts the pair behind a
 ``torch.autograd.Function``.
+
+Compute dtypes.  ``compute_dtype=torch.float32`` (the default) computes in
+float32.  ``torch.bfloat16`` is the JAX package's compute dtype bfloat16
+(``meta = (act, "bfloat16")``, ``_embed_chunk`` :69-82 and the backward
+:136-172): the operands of every product are rounded to bf16 with round to
+nearest even (``round_bf16``) and the products are summed in float32;
+biases, LayerNorm statistics, the activation, the max and the sums of db1,
+dg, dbe and db2 stay float32.  x may then be stored in float32 or bfloat16;
+the parameters are float32, as flax stores them.  The plain versions do the
+same arithmetic on bf16-valued float32 operands (a product of two bf16
+values is exact in float32), so the kernels differ from them only in the
+order of the sums.
 
 Source note, K3.  Replaces ``fused_embed_pool``'s forward: ``_fused_fwd_impl``
 and ``_fwd_kernel`` (fused_embed.py:84-109, 198-228).  Bound on the H100:
@@ -31,7 +44,13 @@ layer 1's accumulators are layer 2's A operand), w1 and w2 sit in shared
 memory pre-split, x is read straight into the fragments at any alignment,
 and persistent blocks walk the rows, one row per warp.  The argmax tie
 rule is the smallest entity index (see the CUDA source); the same inputs
-give the same bits on every launch.
+give the same bits on every launch.  The bf16 mode takes one TF32 pass
+over operands rounded to bf16 (a bf16 value is exact in TF32, so the pass
+gives the bf16 products exactly) on the same fragment layout, with x read
+as stored (bf16 rows of 12 or 26 bytes at any 2-byte alignment); its bound
+is the bf16 products at the bf16 tensor-core rate (989 TFLOP/s, whatever
+unit runs them), the rest on the fp32 cores, against x at its stored
+width.
 
 Source note, K4.  Replaces ``_bwd_kernel`` and ``_fused_bwd``
 (fused_embed.py:112-172, 236-280).  The Pallas kernel adds every grid step
@@ -48,7 +67,11 @@ by all warps at once, with three block barriers per tile.  The gradients
 equal the Pallas kernel's except on exact ties of the pooled maximum
 between different entities, which K3 gives to the smallest entity index
 (jnp.max splits them); ties between identical entity rows, such as the
-observation's padding rows, give the same gradients either way.
+observation's padding rows, give the same gradients either way.  The bf16
+mode rounds the products' operands as the JAX kernel does (x, w1; t and
+dpool for dw2; dpool and w2 for dt; x and dpre for dw1) and runs them on
+the fp32 cores, where bf16 products are exact; its bound charges those
+products (``bwd_mma_flops``) at the bf16 tensor-core rate.
 """
 
 from __future__ import annotations
@@ -62,6 +85,19 @@ from gpudrive_lab_torch import cuda_build
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 _ACTS = {"tanh": 0, "gelu": 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def round_bf16(v: torch.Tensor) -> torch.Tensor:
+    """v rounded to the nearest bf16 (ties to even, as JAX's
+    ``astype(bfloat16)``), as float32."""
+    return v.to(torch.bfloat16).to(torch.float32)
+
+
+def _operand(cd):
+    """How a product's operand enters it in compute dtype ``cd``: as it is
+    in float32, rounded to bf16 in bfloat16."""
+    return round_bf16 if cd == torch.bfloat16 else (lambda v: v)
 
 
 def embed_mma_flops(F_in: int, H: int = 64) -> int:
@@ -86,32 +122,60 @@ def bwd_flops(F_in: int, rows: int, winners: int, H: int = 64) -> int:
     return winners * (4 * F_in * H + 20 * H) + rows * (4 * H * H + H)
 
 
+def bwd_mma_flops(F_in: int, rows: int, winners: int, H: int = 64) -> int:
+    """The products among ``bwd_flops``: per winner layer 1 and dw1
+    (4*F*H), per row the cotangent of t and dw2 (4*H*H).  In compute dtype
+    bfloat16 they are bf16 x bf16 products; the rest of ``bwd_flops``
+    (LayerNorm, the activation, the bias sums) is float32 work."""
+    return winners * 4 * F_in * H + rows * 4 * H * H
+
+
+def bf16_flip_bound(act: str, g, be, w2) -> float:
+    """The most that one bf16 rounding flip of an activation output t
+    moves an entity's output y in compute dtype bfloat16.  Two versions
+    that sum the same products in another order round t to bf16 from float32
+    values a few ulps apart, so now and then t lands on the other side of a
+    rounding boundary: bf16(t) moves by one bf16 ulp, at most 2^-7 |t|, and
+    y_j by that times |w2[k, j]|.  |t| <= 1 for tanh; for gelu |t| <= |lin|
+    <= sqrt(H - 1) max|g| + max|be| (a LayerNorm output has |xh| <=
+    sqrt(H - 1))."""
+    H = w2.shape[0]
+    t_max = 1.0 if act == "tanh" else float(
+        (H - 1) ** 0.5 * g.abs().max() + be.abs().max())
+    return 2.0 ** -7 * t_max * float(w2.abs().max())
+
+
 def _act(x, act: str):
     return torch.tanh(x) if act == "tanh" else F.gelu(x, approximate="tanh")
 
 
-def _embed(x, w1, b1, g, be, w2, b2, act: str):
+def _embed(x, w1, b1, g, be, w2, b2, act: str, cd=torch.float32):
     """[..., F] -> [..., H]: Linear -> LayerNorm -> act -> Linear in f32,
     with the JAX package's recipe (LN statistics as mean of squares of the
-    centred values, eps 1e-6)."""
-    pre = x @ w1 + b1
+    centred values, eps 1e-6); in compute dtype bfloat16 the products'
+    operands are rounded to bf16 first."""
+    r = _operand(cd)
+    pre = r(x.float()) @ r(w1) + b1
     mu = pre.mean(dim=-1, keepdim=True)
     var = ((pre - mu) * (pre - mu)).mean(dim=-1, keepdim=True)
     xh = (pre - mu) * torch.rsqrt(var + LN_EPS)
-    return _act(xh * g + be, act) @ w2 + b2
+    return r(_act(xh * g + be, act)) @ r(w2) + b2
 
 
-def reference_embed_pool_argmax(x, w1, b1, g, be, w2, b2, act="tanh"):
+def reference_embed_pool_argmax(x, w1, b1, g, be, w2, b2, act="tanh",
+                                compute_dtype=torch.float32):
     """Plain version of K3: (pooled [B, H] f32, argmax [B, H] int32).  The
     argmax among exactly equal maxima is whichever torch.max reports."""
-    y = _embed(x, w1, b1, g, be, w2, b2, act)
+    y = _embed(x, w1, b1, g, be, w2, b2, act, compute_dtype)
     pooled, arg = y.max(dim=-2)
     return pooled, arg.to(torch.int32)
 
 
-def reference_embed_pool(x, w1, b1, g, be, w2, b2, act="tanh"):
+def reference_embed_pool(x, w1, b1, g, be, w2, b2, act="tanh",
+                         compute_dtype=torch.float32):
     """Plain version of K3's pooled output, max_e Embed(x)[.., e, :]."""
-    return reference_embed_pool_argmax(x, w1, b1, g, be, w2, b2, act)[0]
+    return reference_embed_pool_argmax(x, w1, b1, g, be, w2, b2, act,
+                                       compute_dtype)[0]
 
 
 def _act_grad(lin, t, act: str):
@@ -125,14 +189,16 @@ def _act_grad(lin, t, act: str):
             + 0.5 * lin * (1.0 - th * th) * c * (1.0 + 3.0 * a * lin * lin))
 
 
-def reference_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
-                             act="tanh"):
-    """Plain version of K4: the gradients (dw1 [F, H], db1, dg, dbe [H],
-    dw2 [H, H], db2 [H]) of sum(pooled * dpool), with the pooled cotangent
-    sent to the winner ``argmax`` [B, H] (entries outside [0, E) send
-    nothing).  Recomputes every entity's activations."""
+def _bwd_parts(x, w1, b1, g, be, w2, b2, argmax, dpool, act, cd,
+               unrounded=()):
+    """The plain backward: (the operands of dw1's and dw2's products as
+    they enter them, and the six gradients).  ``unrounded`` names operands
+    ("t", "dpre") that compute dtype bfloat16 leaves unrounded."""
     E = x.shape[-2]
-    pre = x @ w1 + b1
+    r = _operand(cd)
+    keep = {n: (lambda v: v) if n in unrounded else r for n in ("t", "dpre")}
+    x = r(x.float())
+    pre = x @ r(w1) + b1
     mu = pre.mean(dim=-1, keepdim=True)
     var = ((pre - mu) * (pre - mu)).mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + LN_EPS)
@@ -143,13 +209,66 @@ def reference_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
     dy = torch.zeros_like(t)  # [B, E, H] cotangent of the entity outputs
     dy.scatter_(-2, torch.where(ok, argmax, 0).long().unsqueeze(-2),
                 torch.where(ok, dpool, 0.0).unsqueeze(-2))
-    dw2 = torch.einsum("bek,bej->kj", t, dy)
-    dlin = (dy @ w2.t()) * _act_grad(lin, t, act)
+    t_op, dy_op = keep["t"](t), r(dy)
+    dw2 = torch.einsum("bek,bej->kj", t_op, dy_op)
+    dlin = (dy_op @ r(w2).t()) * _act_grad(lin, t, act)
     dxh = dlin * g
     dpre = (dxh - dxh.mean(dim=-1, keepdim=True)
             - xh * (dxh * xh).mean(dim=-1, keepdim=True)) * rstd
-    return (torch.einsum("bef,bek->fk", x, dpre), dpre.sum((0, 1)),
-            (dlin * xh).sum((0, 1)), dlin.sum((0, 1)), dw2, dy.sum((0, 1)))
+    dpre_op = keep["dpre"](dpre)
+    grads = (torch.einsum("bef,bek->fk", x, dpre_op), dpre.sum((0, 1)),
+             (dlin * xh).sum((0, 1)), dlin.sum((0, 1)), dw2, dy.sum((0, 1)))
+    return (x, dpre_op, t_op, dy_op), grads
+
+
+def reference_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
+                             act="tanh", compute_dtype=torch.float32,
+                             unrounded=()):
+    """Plain version of K4: the gradients (dw1 [F, H], db1, dg, dbe [H],
+    dw2 [H, H], db2 [H]) of sum(pooled * dpool), with the pooled cotangent
+    sent to the winner ``argmax`` [B, H] (entries outside [0, E) send
+    nothing).  Recomputes every entity's activations.  In compute dtype
+    bfloat16 every product's operands are rounded to bf16 (x, w1; t and the
+    cotangent for dw2; the cotangent and w2 for dt; x and dpre for dw1),
+    and db1, dg, dbe, db2 sum the unrounded values.  ``unrounded``
+    ("t", "dpre") leaves those operands of dw2 and dw1 unrounded: a
+    deliberately wrong variant, the control that shows a bar of
+    ``BF16_PRODUCT_BAR`` rejects a version missing that rounding."""
+    return _bwd_parts(x, w1, b1, g, be, w2, b2, argmax, dpool, act,
+                      compute_dtype, unrounded)[1]
+
+
+# How far dw1 and dw2 of two sound versions of K4's bf16 mode may differ,
+# as a share of their terms' root-sum-square (``bwd_product_rss``).  Both
+# sum products of operands rounded to bf16 (x and dpre; t and the
+# cotangent), computed in float32 in another order, so an operand's float32
+# values differ by a few ulps between them.  Only where a bf16 rounding
+# boundary falls between the two does the rounded operand differ, by one
+# bf16 ulp, at most 2^-7 of the term.  With the float32 values within 64
+# ulps (2^-18 relative) that befalls at most 2^-18 / 2^-8 = 2^-10 of the
+# terms, so the moves' root-sum-square is at most sqrt(2^-10) * 2^-7 =
+# 2^-12 of all the terms'.  A version that skips one of the roundings moves
+# every term by its rounding error, uniform within half a bf16 ulp: about
+# 2^-8.5 / sqrt(3) = 1.6e-3 of the root-sum-square, 6.7 times the bar.
+BF16_PRODUCT_BAR = 2.0 ** -12
+
+
+def bwd_product_rss(x, w1, b1, g, be, w2, b2, argmax, dpool, act="tanh",
+                    compute_dtype=torch.float32):
+    """(dw1's, dw2's) root-sum-square of the plain backward's product
+    terms, sqrt(sum over each entry's terms of (a * b)^2): the scale of
+    their rounding errors, for ``bf16_product_error``."""
+    (x, dpre, t, dy), _ = _bwd_parts(x, w1, b1, g, be, w2, b2, argmax,
+                                     dpool, act, compute_dtype)
+    return (torch.einsum("bef,bek->fk", x * x, dpre * dpre).sqrt(),
+            torch.einsum("bek,bej->kj", t * t, dy * dy).sqrt())
+
+
+def bf16_product_error(got, want, rss) -> float:
+    """||got - want|| / ||rss|| (Frobenius norms): a dw1 or dw2 error as a
+    share of its terms' root-sum-square, held at ``BF16_PRODUCT_BAR``."""
+    return float((got.float() - want.float()).norm()
+                 / rss.float().norm().clamp_min(1e-30))
 
 
 def winner_table(argmax, E: int):
@@ -169,28 +288,51 @@ def winner_table(argmax, E: int):
     return first.sum(dim=1), rank
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argtypes of every C entry point of K3 and K4 (all return an int status)
+_SIGNATURES = {
+    "fused_embed_pool_fwd": [_P] * 9 + [_I, _I, _I, _LL, _I, _P],
+    "fused_embed_pool_fwd_bf16": [_P] * 9 + [_I, _I, _I, _LL, _I, _I, _P],
+    "fused_embed_pool_bwd": [_P] * 10 + [_I, _I, _I, _LL, _I, _I, _P],
+    "fused_embed_pool_bwd_bf16": [_P] * 10 + [_I, _I, _I, _LL, _I, _I, _I,
+                                              _P],
+    "fused_embed_pool_bwd_blocks": [_I],
+    "fused_embed_pool_bwd_blocks_bf16": [_I, _I],
+}
+_ENTRIES = {
+    "fused_embed": ("fused_embed_pool_fwd", "fused_embed_pool_fwd_bf16"),
+    "fused_embed_bwd": ("fused_embed_pool_bwd", "fused_embed_pool_bwd_bf16",
+                        "fused_embed_pool_bwd_blocks",
+                        "fused_embed_pool_bwd_blocks_bf16"),
+}
+
+
+def declare(lib, names) -> None:
+    """Declare the ctypes signatures of the entry points ``names`` of a
+    loaded K3 or K4 library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = _SIGNATURES[name], _I
+    lib._argtypes_set = True
+
+
 def _lib(name: str):
     lib = cuda_build.load(name)
     if not getattr(lib, "_argtypes_set", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "fused_embed":
-            lib.fused_embed_pool_fwd.argtypes = [p] * 9 + [i, i, i, ll, i, p]
-            lib.fused_embed_pool_fwd.restype = i
-        else:
-            lib.fused_embed_pool_bwd.argtypes = [p] * 10 + [i, i, i, ll, i,
-                                                            i, p]
-            lib.fused_embed_pool_bwd.restype = i
-            lib.fused_embed_pool_bwd_blocks.argtypes = [i]
-            lib.fused_embed_pool_bwd_blocks.restype = i
-        lib._argtypes_set = True
+        declare(lib, _ENTRIES[name])
     return lib
 
 
-def _check_inputs(x, params: dict, act: str):
-    """Shared checks of K3 and K4: act, dtypes, the parameter shapes and
-    x's layout.  Returns (B, E, F) and the set of devices."""
+def _check_inputs(x, params: dict, act: str, cd):
+    """Shared checks of K3 and K4: act, the compute dtype, dtypes (x in
+    float32, or bfloat16 in compute dtype bfloat16; parameters float32),
+    the parameter shapes and x's layout.  Returns (B, E, F) and the set of
+    devices."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {sorted(_ACTS)}, got {act!r}")
+    if cd not in _DTYPES:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{cd}")
     if x.dim() != 3:
         raise ValueError(f"x: expected [B, E, F], got {tuple(x.shape)}")
     B, E, Fi = x.shape
@@ -198,8 +340,10 @@ def _check_inputs(x, params: dict, act: str):
     shapes = {"w1": (Fi, H), "b1": (H,), "g": (H,), "be": (H,),
               "w2": (H, H), "b2": (H,)}
     for name, t in {"x": x, **params}.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        ok = (torch.float32, cd) if name == "x" else (torch.float32,)
+        if t.dtype not in ok:
+            raise TypeError(f"{name}: expected {' or '.join(map(str, ok))} "
+                            f"in compute dtype {cd}, got {t.dtype}")
         if name != "x" and tuple(t.shape) != shapes[name]:
             raise ValueError(
                 f"{name}: expected {shapes[name]}, got {tuple(t.shape)}"
@@ -221,45 +365,55 @@ def _cuda_device(devs, x):
         raise ValueError(f"inputs on {devs}: must share one CUDA device")
 
 
-def fused_embed_pool_fwd(x, w1, b1, g, be, w2, b2, act="tanh"):
+def fused_embed_pool_fwd(x, w1, b1, g, be, w2, b2, act="tanh",
+                         compute_dtype=torch.float32):
     """K3.  x [B, E, F] float32 (F <= 16, E >= 1) whose rows are each
     contiguous (a [B, E, F] view of a slice of the flat observation is
-    taken in place); w1 [F, 64]; b1, g, be, b2 [64]; w2 [64, 64], float32
-    and contiguous, as flax stores them.  Returns (pooled [B, 64] float32,
-    argmax [B, 64] int32)."""
+    taken in place), or bfloat16 in compute dtype bfloat16; w1 [F, 64];
+    b1, g, be, b2 [64]; w2 [64, 64], float32 and contiguous, as flax stores
+    them.  ``compute_dtype`` is torch.float32 or torch.bfloat16 (module
+    docstring).  Returns (pooled [B, 64] float32, argmax [B, 64] int32)."""
+    cd = compute_dtype
     (B, E, Fi), devs = _check_inputs(
-        x, dict(w1=w1, b1=b1, g=g, be=be, w2=w2, b2=b2), act)
+        x, dict(w1=w1, b1=b1, g=g, be=be, w2=w2, b2=b2), act, cd)
     H = 64
     if devs == {torch.device("cpu")}:
-        return reference_embed_pool_argmax(x, w1, b1, g, be, w2, b2, act)
+        return reference_embed_pool_argmax(x, w1, b1, g, be, w2, b2, act, cd)
     _cuda_device(devs, x)
     out = torch.empty((B, H), dtype=torch.float32, device=x.device)
     amax = torch.empty((B, H), dtype=torch.int32, device=x.device)
     if B == 0:
         return out, amax
-    status = _lib("fused_embed").fused_embed_pool_fwd(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(),
-        be.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        amax.data_ptr(), B, E, Fi, x.stride(0), _ACTS[act],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    lib = _lib("fused_embed")
+    args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(),
+            be.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            amax.data_ptr(), B, E, Fi, x.stride(0))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if cd == torch.float32:
+        status = lib.fused_embed_pool_fwd(*args, _ACTS[act], stream)
+    else:
+        status = lib.fused_embed_pool_fwd_bf16(
+            *args, int(x.dtype == torch.bfloat16), _ACTS[act], stream)
     cuda_build.check(status, "fused_embed_pool_fwd")
     fused_embed_pool_fwd.launches += 1
+    fused_embed_pool_fwd.bf16_launches += cd == torch.bfloat16
     return out, amax
 
 
 fused_embed_pool_fwd.launches = 0
+fused_embed_pool_fwd.bf16_launches = 0
 
 
 def fused_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
-                         act="tanh"):
-    """K4.  x and the parameters as for K3; argmax [B, 64] int32 from K3
-    and the pooled cotangent dpool [B, 64] float32.  Returns the gradients
-    (dw1 [F, 64], db1, dg, dbe [64], dw2 [64, 64], db2 [64]) of
-    sum(pooled * dpool); d/dx is not computed.  Deterministic: the same
-    inputs give the same bits on every run."""
+                         act="tanh", compute_dtype=torch.float32):
+    """K4.  x, the parameters and ``compute_dtype`` as for K3; argmax
+    [B, 64] int32 from K3 and the pooled cotangent dpool [B, 64] float32.
+    Returns the gradients (dw1 [F, 64], db1, dg, dbe [64], dw2 [64, 64],
+    db2 [64]) of sum(pooled * dpool), float32; d/dx is not computed.
+    Deterministic: the same inputs give the same bits on every run."""
+    cd = compute_dtype
     (B, E, Fi), devs = _check_inputs(
-        x, dict(w1=w1, b1=b1, g=g, be=be, w2=w2, b2=b2), act)
+        x, dict(w1=w1, b1=b1, g=g, be=be, w2=w2, b2=b2), act, cd)
     H = 64
     if tuple(argmax.shape) != (B, H) or argmax.dtype != torch.int32:
         raise ValueError(f"argmax: expected int32 {(B, H)}, got "
@@ -271,55 +425,66 @@ def fused_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
     devs = devs | {argmax.device, dpool.device}
     if devs == {torch.device("cpu")}:
         return reference_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax,
-                                        dpool, act)
+                                        dpool, act, cd)
     _cuda_device(devs, x)
     n_out = Fi * H + H * H + 4 * H
     out = torch.zeros((n_out,), dtype=torch.float32, device=x.device)
     if B > 0:
         lib = _lib("fused_embed_bwd")
+        x_bf16 = int(x.dtype == torch.bfloat16)
         # as many blocks as run at once; each writes one partial row
-        nblocks = lib.fused_embed_pool_bwd_blocks(B)
+        nblocks = (lib.fused_embed_pool_bwd_blocks(B) if cd == torch.float32
+                   else lib.fused_embed_pool_bwd_blocks_bf16(B, x_bf16))
         if nblocks < 1:
             raise RuntimeError("fused_embed_pool_bwd: no launch configuration")
         partial = torch.empty((nblocks, n_out), dtype=torch.float32,
                               device=x.device)
         argmax, dpool = argmax.contiguous(), dpool.contiguous()
-        status = lib.fused_embed_pool_bwd(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(),
-            be.data_ptr(), w2.data_ptr(), argmax.data_ptr(),
-            dpool.data_ptr(), partial.data_ptr(), out.data_ptr(), B, E, Fi,
-            x.stride(0), nblocks, _ACTS[act],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(),
+                be.data_ptr(), w2.data_ptr(), argmax.data_ptr(),
+                dpool.data_ptr(), partial.data_ptr(), out.data_ptr(), B, E,
+                Fi, x.stride(0), nblocks)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if cd == torch.float32:
+            status = lib.fused_embed_pool_bwd(*args, _ACTS[act], stream)
+        else:
+            status = lib.fused_embed_pool_bwd_bf16(*args, x_bf16, _ACTS[act],
+                                                   stream)
         cuda_build.check(status, "fused_embed_pool_bwd")
         fused_embed_pool_bwd.launches += 1
+        fused_embed_pool_bwd.bf16_launches += cd == torch.bfloat16
     dw1, db1, dg, dbe, dw2, db2 = torch.split(
         out, [Fi * H, H, H, H, H * H, H])
     return (dw1.view(Fi, H), db1, dg, dbe, dw2.view(H, H), db2)
 
 
 fused_embed_pool_bwd.launches = 0
+fused_embed_pool_bwd.bf16_launches = 0
 
 
 class _FusedEmbedPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, g, be, w2, b2, act):
-        pooled, argmax = fused_embed_pool_fwd(x, w1, b1, g, be, w2, b2, act)
+    def forward(ctx, x, w1, b1, g, be, w2, b2, act, cd):
+        pooled, argmax = fused_embed_pool_fwd(x, w1, b1, g, be, w2, b2, act,
+                                              cd)
         ctx.save_for_backward(x, w1, b1, g, be, w2, b2, argmax)
-        ctx.act = act
+        ctx.act, ctx.cd = act, cd
         return pooled
 
     @staticmethod
     def backward(ctx, dpool):
         x, w1, b1, g, be, w2, b2, argmax = ctx.saved_tensors
         grads = fused_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax,
-                                     dpool, ctx.act)
-        return (None, *grads, None)
+                                     dpool, ctx.act, ctx.cd)
+        return (None, *grads, None, None)
 
 
-def fused_embed_pool(x, w1, b1, g, be, w2, b2, act="tanh"):
+def fused_embed_pool(x, w1, b1, g, be, w2, b2, act="tanh",
+                     compute_dtype=torch.float32):
     """max_e Embed(x)[.., e, :] through K3, differentiable in the
     parameters through K4 (d/dx is None: never use it where x needs a
     gradient).  x [B, E, F]; parameters as flax stores them (w1 [F, H],
-    w2 [H, H]).  Returns pooled [B, H] float32."""
-    return _FusedEmbedPool.apply(x, w1, b1, g, be, w2, b2, act)
+    w2 [H, H]); ``compute_dtype`` torch.float32 or torch.bfloat16.  Returns
+    pooled [B, H] float32."""
+    return _FusedEmbedPool.apply(x, w1, b1, g, be, w2, b2, act,
+                                 compute_dtype)

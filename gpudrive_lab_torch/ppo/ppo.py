@@ -19,8 +19,10 @@ takes the actions (``actions=``) and the update the permutations
 
 The JAX package's ``unroll`` and ``epoch_preshuffle`` options change only
 how XLA is asked to run the same computation; here they are accepted and
-give the same result as without them.  ``policy_dtype="bfloat16"`` is not
-ported (ROADMAP Queue A, "bf16 policy dtype").
+give the same result as without them.  ``policy_dtype="bfloat16"`` runs the
+policy in bf16 (``PolicyConfig.dtype``; the fused blocks through K3 and K4
+in their bf16 compute mode) with float32 parameters, logits and values; a
+bf16 observation store then goes to the policy as stored.
 
 Hyperparameter defaults mirror baselines/ppo/config/ppo_base_puffer.yaml.
 """
@@ -78,7 +80,7 @@ class PPOConfig:
     compact_mode: str = "world"
     compact_blocks: int = 0  # flat mode: block-local selection
     unroll: bool = False  # accepted; same result
-    policy_dtype: str = "float32"  # "bfloat16" is not ported
+    policy_dtype: str = "float32"  # or "bfloat16": the policy's dtype
     embed_remat: bool = False
     fused_embed: bool = False
     # flat mode: also cut minibatches to this many rows of the flat axis
@@ -156,11 +158,8 @@ class PPO:
                  spec: ObsSpec, action_table: torch.Tensor, reward_type: str,
                  config: PPOConfig,
                  perm_generator: torch.Generator | None = None):
-        if config.policy_dtype != "float32":
-            raise NotImplementedError(
-                "policy_dtype='bfloat16' is not ported (ROADMAP Queue A, "
-                "'bf16 policy dtype'); the kernels are float32"
-            )
+        if config.policy_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown policy_dtype {config.policy_dtype!r}")
         if config.obs_store not in ("flat", "split"):
             raise ValueError(f"unknown obs_store {config.obs_store!r}")
         self.flat_mode = bool(config.compact) and config.compact_mode == "flat"
@@ -390,8 +389,10 @@ class PPO:
                                     self.params, self.spec, reward_weights,
                                     cidx)[0] for t in t_idx]
             mb["obs"] = torch.stack(obs).reshape(-1, obs[0].shape[-1])
-        else:
+        elif cfg.policy_dtype == "float32":
             mb["obs"] = _map_obs(lambda o: o.to(torch.float32), mb["obs"])
+        # else the store goes to the bf16 policy as it is: its Dense layers
+        # and K3/K4 read bf16 or float32 alike (JAX ppo.py:446-453)
         return mb
 
     def loss(self, mb: dict, ent_coef):

@@ -9,14 +9,17 @@ Run (on the card by default; ``--device cpu`` for a small CPU run):
 
     python -m gpudrive_lab_torch.ppo.train --num-worlds 4 --rollout-len 16
 
+``--policy-dtype bf16`` runs the policy in bf16 (K3 and K4 in their bf16
+compute mode with ``--fused-embed``); ``--obs-store bf16`` or
+``split-bf16`` with it is the JAX package's production pairing.
+
 Not ported yet, and refused when asked for: the scene dataset loader and
 resampling (``--resample-interval``; the CLI takes the first
 ``--num-worlds`` sorted scenes of ``--data-dir``), rollout videos
-(``--video-interval``), the live dashboard (``--dashboard``) and the bf16
-policy dtype (``--policy-dtype bf16``); each names its ROADMAP item.  The
-JAX package's dispatch options ``--rollout-mode``, ``--iters-per-dispatch``
-and ``--packed-io`` are accepted: this trainer has one eager mode, and they
-give the same samples and metrics.
+(``--video-interval``) and the live dashboard (``--dashboard``); each names
+its ROADMAP item.  The JAX package's dispatch options ``--rollout-mode``,
+``--iters-per-dispatch`` and ``--packed-io`` are accepted: this trainer has
+one eager mode, and they give the same samples and metrics.
 """
 
 from __future__ import annotations
@@ -131,6 +134,8 @@ def build_trainer(env: GPUDriveTorchEnv, ppo_config: PPOConfig,
         action_dim=env.action_space_n,
         embed_remat=ppo_config.embed_remat,
         fused_embed=ppo_config.fused_embed,
+        dtype=(torch.bfloat16 if ppo_config.policy_dtype == "bfloat16"
+               else torch.float32),
     )
     policy = LateFusionPolicy(policy_config, device=env.device,
                               generator=torch.Generator().manual_seed(seed))
@@ -195,12 +200,10 @@ def _refuse(args):
     """The options of the JAX CLI whose code is not ported yet."""
     refused = [
         (args.resample_interval > 0, "--resample-interval",
-         "Queue A item 4, the dataset loader"),
+         "Queue A item 1, the dataset loader"),
         (args.video_interval > 0, "--video-interval",
-         "Queue A item 9, visualize/"),
-        (args.dashboard, "--dashboard", "Queue A item 9, utils/dashboard"),
-        (args.policy_dtype == "bf16", "--policy-dtype bf16",
-         "Queue A, 'bf16 policy dtype'"),
+         "Queue A item 6, visualize/"),
+        (args.dashboard, "--dashboard", "Queue A item 6, utils/dashboard"),
     ]
     for on, flag, item in refused:
         if on:
@@ -268,7 +271,8 @@ def main(argv=None):
                             "split-bf16"], default="remat",
                    help="recompute observations from stored states, or store "
                         "them flat or split, in f32 or bf16")
-    p.add_argument("--policy-dtype", choices=["f32", "bf16"], default="f32")
+    p.add_argument("--policy-dtype", choices=["f32", "bf16"], default="f32",
+                   help="policy compute dtype; parameters stay float32")
     p.add_argument("--embed-remat", action="store_true")
     p.add_argument("--fused-embed", action="store_true",
                    help="partner/road embed+pool through kernels K3/K4")
@@ -311,6 +315,7 @@ def main(argv=None):
         minibatch_rows=args.minibatch_rows,
         epoch_preshuffle=args.epoch_preshuffle,
         embed_remat=args.embed_remat, fused_embed=args.fused_embed,
+        policy_dtype="bfloat16" if args.policy_dtype == "bf16" else "float32",
     )
     ppo, carry, fresh, train_fn = build_trainer(
         env, ppo_cfg, seed=args.seed, rollout_mode=args.rollout_mode,

@@ -318,6 +318,122 @@ def test_fused_embed_bwd_kernel_matches_plain(dev, B, E, F, act):
         assert float((a.cpu() - c).abs().max()) <= 1e-4 * scale, name
 
 
+# K3 and K4 in compute dtype bfloat16 against their plain bf16 versions.
+# Both sum exact bf16 products in float32, in another order; the float32
+# values then round to bf16 (the activation output t before layer 2) the
+# same way except where they lie within a few ulps of a bf16 rounding
+# boundary.  Bars: every pooled entry within BF16_FLIPS flips of t
+# (fe.bf16_flip_bound each), at most 1% of entries beyond 1e-5 (sum order
+# alone moves an entry by ~1e-6), the kernel's winner within the same bar
+# of the plain maximum, and the argmax equal where the top two differ by
+# more than twice the bar.
+BF16_FLIPS = 4
+
+
+def _check_k3_bf16(x_dev, x, w, act):
+    """K3 in compute dtype bfloat16 on the card (x as stored, float32 or
+    bf16) against its plain bf16 version at the bars above, two launches
+    bitwise equal."""
+    bf = torch.bfloat16
+    wd = [t.to(x_dev.device) for t in w]
+    before = fe.fused_embed_pool_fwd.launches
+    pooled, arg = fe.fused_embed_pool_fwd(x_dev, *wd, act, bf)
+    pooled2, arg2 = fe.fused_embed_pool_fwd(x_dev, *wd, act, bf)
+    assert fe.fused_embed_pool_fwd.launches == before + 2
+    assert torch.equal(pooled, pooled2) and torch.equal(arg, arg2)
+    y = fe._embed(x, *w, act, bf)
+    want = y.amax(dim=1)
+    bar = BF16_FLIPS * fe.bf16_flip_bound(act, w[2], w[3], w[4])
+    err = (pooled.cpu() - want).abs()
+    assert float(err.max()) <= bar, (float(err.max()), bar)
+    assert float((err > 1e-5).float().mean()) <= 0.01
+    picked = torch.gather(y, 1, arg.cpu().long()[:, None]).squeeze(1)
+    assert float((want - picked).abs().max()) <= bar
+    if y.shape[1] > 1:
+        top2 = y.topk(2, dim=1)
+        clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * bar
+        assert torch.equal(arg.cpu().long()[clear], top2.indices[:, 0][clear])
+    return pooled, arg
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,E,F", [(37, 127, 6), (64, 200, 13), (20, 1, 6),
+                                   (33, 17, 13), (4416, 200, 13)])
+@pytest.mark.parametrize("act", ["tanh", "gelu"])
+def test_fused_embed_bf16_kernel_matches_plain(dev, B, E, F, act, x_dtype):
+    """K3's bf16 compute mode against its plain version, x stored in
+    float32 or bf16, ragged E and the PPO rollout's 4,416 rows included."""
+    g = torch.Generator().manual_seed(B + E + 1)
+    x = torch.randn(B, E, F, generator=g).to(getattr(torch, x_dtype))
+    _check_k3_bf16(x.to(dev), x, _embed_params(g, F), act)
+
+
+def test_fused_embed_bf16_kernel_reads_bf16_rows_in_place(dev):
+    """The partner and road blocks read in place from [B, 3368] bf16
+    observation rows (road entities of 26 bytes, every other one at an odd
+    2-byte offset), and a block starting one element off: the same bits as
+    the kernel on contiguous copies."""
+    B = 300
+    g = torch.Generator().manual_seed(12)
+    obs = torch.randn(B, 3370, generator=g).to(torch.bfloat16)
+    for lo, E, F in ((6, 127, 6), (768, 200, 13), (769, 200, 13)):
+        w = _embed_params(g, F)
+        view = obs.to(dev)[:, lo:lo + E * F].unflatten(-1, (E, F))
+        x = obs[:, lo:lo + E * F].unflatten(-1, (E, F)).contiguous()
+        pooled, arg = _check_k3_bf16(view, x, w, "tanh")
+        copy = fe.fused_embed_pool_fwd(x.to(dev), *[t.to(dev) for t in w],
+                                       "tanh", torch.bfloat16)
+        assert torch.equal(pooled, copy[0]) and torch.equal(arg, copy[1])
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,E,F", [(37, 127, 6), (64, 200, 13), (1000, 23, 13),
+                                   (20, 1, 6), (4416, 200, 13)])
+@pytest.mark.parametrize("act", ["tanh", "gelu"])
+def test_fused_embed_bwd_bf16_kernel_matches_plain(dev, B, E, F, act,
+                                                   x_dtype):
+    """K4's bf16 compute mode against its plain version with the argmax
+    K3's bf16 mode gave (the last rows carry winner -1).  db1, dg, dbe and
+    db2 sum unrounded float32 values: 1e-4 of each one's largest magnitude,
+    K4's float32 bar.  dw1 and dw2 sum products of operands rounded to
+    bf16 (dpre and t), which the two versions can round apart where a
+    float32 value lies within a few ulps of a rounding boundary: their
+    error as a share of the terms' root-sum-square is held at
+    fused_embed.BF16_PRODUCT_BAR (2^-12, derived there).  The control:
+    K4's float32 mode on the same inputs skips those roundings and must
+    exceed the bar on both.  Two launches give the same bits."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(B * E + F + 1)
+    x = torch.randn(B, E, F, generator=g).to(getattr(torch, x_dtype))
+    w = _embed_params(g, F)
+    dpool = torch.randn(B, 64, generator=g)
+    wd = [t.to(dev) for t in w]
+    _, arg = fe.fused_embed_pool_fwd(x.to(dev), *wd, act, bf)
+    arg[-2:] = -1
+    before = fe.fused_embed_pool_bwd.launches
+    got = fe.fused_embed_pool_bwd(x.to(dev), *wd, arg, dpool.to(dev), act, bf)
+    again = fe.fused_embed_pool_bwd(x.to(dev), *wd, arg, dpool.to(dev), act,
+                                    bf)
+    assert fe.fused_embed_pool_bwd.launches == before + 2
+    control = fe.fused_embed_pool_bwd(x.float().to(dev), *wd, arg,
+                                      dpool.to(dev), act)
+    want = fe.reference_embed_pool_bwd(x, *w, arg.cpu(), dpool, act, bf)
+    rss = fe.bwd_product_rss(x, *w, arg.cpu(), dpool, act, bf)
+    for name, a, b, c, k in zip(("w1", "b1", "g", "be", "w2", "b2"), got,
+                                again, want, control):
+        assert a.shape == c.shape and a.dtype == torch.float32, name
+        assert torch.equal(a, b), name
+        if name in ("w1", "w2"):
+            s = rss[name == "w2"]
+            assert fe.bf16_product_error(a.cpu(), c, s) <= \
+                fe.BF16_PRODUCT_BAR, name
+            assert fe.bf16_product_error(k.cpu(), c, s) > \
+                fe.BF16_PRODUCT_BAR, name
+        else:
+            assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(
+                c.abs().max()), name
+
+
 def test_fused_embed_autograd_on_card(dev):
     """fused_embed_pool's backward launches K4 on CUDA tensors and gives
     the plain version's gradients; x gets no gradient."""
@@ -338,6 +454,36 @@ def test_fused_embed_autograd_on_card(dev):
         grads.append([p.grad.cpu() for p in ps])
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_fused_embed_bf16_autograd_on_card(dev):
+    """In compute dtype bfloat16, fused_embed_pool's backward launches K4's
+    bf16 mode on CUDA tensors (x stored in bf16) and gives the plain
+    version's gradients at the bf16 bars of K4 above (dw1 and dw2 as a
+    share of their terms' root-sum-square)."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(50, 31, 13, generator=g).to(bf)
+    w = _embed_params(g, 13)
+    co = torch.randn(50, 64, generator=g)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        ps = [t.to(d).requires_grad_() for t in w]
+        before = fe.fused_embed_pool_bwd.launches
+        (fe.fused_embed_pool(x.to(d), *ps, "tanh", bf) * co.to(d)).sum(
+        ).backward()
+        assert fe.fused_embed_pool_bwd.launches == before + (d == dev)
+        grads.append([p.grad.cpu() for p in ps])
+    xc = x.float()
+    _, arg = fe.reference_embed_pool_argmax(xc, *w, "tanh", bf)
+    rss = fe.bwd_product_rss(xc, *w, arg, co, "tanh", bf)
+    for name, a, b in zip(("w1", "b1", "g", "be", "w2", "b2"), *grads):
+        if name in ("w1", "w2"):
+            assert fe.bf16_product_error(a, b, rss[name == "w2"]) <= \
+                fe.BF16_PRODUCT_BAR, name
+        else:
+            assert float((a - b).abs().max()) <= 1e-4 * float(
+                b.abs().max()), name
 
 
 def test_train_iteration_on_card(dev):
@@ -373,6 +519,37 @@ def test_train_iteration_on_card(dev):
         ppo.learn(env.scene, batch, traj, env.reward_weights)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_bf16_train_iteration_on_card(dev):
+    """One PPO iteration with the bf16 policy on 4 pool worlds on the card,
+    in the JAX package's production pairing (split bf16 obs store, fused
+    embed): K3 and K4 run their bf16 mode on bf16 x, K4 twice per
+    minibatch; the losses are finite and the parameters move and stay
+    float32."""
+    from gpudrive_lab_torch.ppo.ppo import PPOConfig
+    from gpudrive_lab_torch.ppo.train import build_trainer
+    from gpudrive_lab_torch.rollout import pool_scene_paths, slice_env
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = slice_env(pool_scene_paths(root)[:4], device=dev)
+    n = int(env.scene.agents.controlled.sum())
+    cfg = PPOConfig(rollout_len=8, update_epochs=2, num_minibatches=2,
+                    fused_embed=True, compact=-(-n // 64) * 64,
+                    compact_mode="flat", policy_dtype="bfloat16",
+                    remat_obs=False, obs_store="split",
+                    obs_store_dtype="bfloat16")
+    ppo, carry, fresh, train_fn = build_trainer(env, cfg, seed=0)
+    assert ppo.policy.config.dtype == torch.bfloat16
+    before = [p.detach().clone() for p in ppo.policy.parameters()]
+    n4 = fe.fused_embed_pool_bwd.launches
+    carry, m = train_fn(env.scene, carry, fresh, env.reward_weights)
+    torch.cuda.synchronize()
+    assert fe.fused_embed_pool_bwd.launches - n4 == 2 * 2 * 2
+    assert all(bool(torch.isfinite(v).all()) for v in m.values())
+    params = list(ppo.policy.parameters())
+    assert all(p.dtype == torch.float32 for p in params)
+    assert any(not torch.equal(a, b) for a, b in zip(params, before))
 
 
 def test_wrapper_refuses_mixed_devices(dev):

@@ -1,7 +1,10 @@
 """Env and policy parity, and the slice as a whole.
 
   * flat_observation [W, A, 3368] within 1e-5 of the JAX env (KNN road rows
-    compared as sets, since the order inside K is unspecified), masks exact;
+    compared as sets, since the order inside K is unspecified), masks exact,
+    also unnormalised, with an obs block or all classic blocks off, the
+    bicycle and delta-local models, remove and stop, init_steps and
+    stacked frames;
   * shaped rewards and dones equal;
   * LateFusionPolicy logits and value within 1e-5 of the flax model, with
     weights carried across by params_from_flax, fused_embed on and off;
@@ -33,56 +36,110 @@ from gpudrive_lab_torch.rollout import SLICE_CONFIG, rollout
 from torch_parity import (
     POOL_SCENES,
     flax_variables,
+    match_rows,
     python_scene_compiler,
-    sorted_rows,
 )
 
 PATHS = POOL_SCENES[20:22]
+PATHS3 = POOL_SCENES[20:23]
 E = C.EGO_FEAT_DIM
 P = (C.MAX_AGENTS - 1) * C.PARTNER_FEAT_DIM
 
 
-def _envs(**overrides):
+def _envs(paths=PATHS, **overrides):
     kw = dict(SLICE_CONFIG, **overrides)
-    env = GPUDriveTorchEnv(EnvConfig(**kw), PATHS, device="cpu")
+    env = GPUDriveTorchEnv(EnvConfig(**kw), paths, device="cpu")
     with python_scene_compiler():
-        jenv = GPUDriveTPUEnv(JaxEnvConfig(num_worlds=len(PATHS), **kw),
-                              scene_paths=PATHS)
+        jenv = GPUDriveTPUEnv(JaxEnvConfig(num_worlds=len(paths), **kw),
+                              scene_paths=paths)
     return env, jenv
 
 
-def _road_rows(obs, road_mask):
+def _road_rows(road, road_mask):
     """[W, A, K, 14]: the 13 road features with the road mask beside."""
-    road = obs[..., E + P:].reshape(obs.shape[:-1] + (C.MAX_AGENT_MAP_OBS, 13))
+    road = road.reshape(road.shape[:-1] + (C.MAX_AGENT_MAP_OBS, 13))
     return np.concatenate([road, road_mask[..., None].astype(np.float32)], -1)
 
 
 def assert_obs_match(env, jenv, obs, jobs, ordered_roads=False):
+    """Frame by frame (``num_stack`` frames, oldest first): the ego and
+    partner blocks in order, the road rows as sets (with the road mask of
+    the newest frame beside them) unless ``ordered_roads``."""
     obs, jobs = obs.numpy(), np.asarray(jobs)
     assert obs.shape == jobs.shape
-    np.testing.assert_allclose(obs[..., :E + P], jobs[..., :E + P],
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(env.partner_mask.numpy(),
-                                  np.asarray(jenv.partner_mask))
-    got = _road_rows(obs, env.road_mask.numpy())
-    want = _road_rows(jobs, np.asarray(jenv.road_mask))
-    if not ordered_roads:
-        got, want = sorted_rows(got), sorted_rows(want)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    spec = env.spec
+    head = (E if spec.ego_state else 0) + (P if spec.partner_obs else 0)
+    n = env.config.num_stack
+    frames = obs.reshape(obs.shape[:-1] + (n, -1))
+    jframes = jobs.reshape(jobs.shape[:-1] + (n, -1))
+    if spec.partner_obs:
+        np.testing.assert_array_equal(env.partner_mask.numpy(),
+                                      np.asarray(jenv.partner_mask))
+    else:
+        assert env.partner_mask is None and jenv.partner_mask is None
+    no_mask = np.zeros(obs.shape[:-1] + (C.MAX_AGENT_MAP_OBS,), bool)
+    for i in range(n):
+        got, want = frames[..., i, :], jframes[..., i, :]
+        np.testing.assert_allclose(got[..., :head], want[..., :head],
+                                   rtol=1e-5, atol=1e-5)
+        if not spec.road_map_obs:
+            continue
+        newest = i == n - 1
+        got = _road_rows(got[..., head:], env.road_mask.numpy() if newest
+                         else no_mask)
+        want = _road_rows(want[..., head:], np.asarray(jenv.road_mask)
+                          if newest else no_mask)
+        if not ordered_roads:
+            got = match_rows(got, want)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("overrides", [
-    {},
-    {"road_obs_algorithm": "linear"},
-    {"agent_bucket": "auto"},
-    {"reward_type": "distance_to_logs"},
-], ids=["knn", "linear", "agent-bucket", "distance-to-logs"])
-def test_obs_rewards_dones_match(overrides):
-    env, jenv = _envs(**overrides)
+def test_match_rows_pairs_rows_apart_by_float_noise():
+    """Two [K, D] sets holding the same road rows in another order, one
+    side moved by 1e-5 in a metre-scale coordinate, compare equal after
+    match_rows, also where rounding the coordinate to 4 decimals would put
+    the two sides on either side of a rounding boundary (12.34565) and
+    where two different rows are nearer in that coordinate than the noise
+    (their second column tells them apart)."""
+    rng = np.random.default_rng(3)
+    want = rng.uniform(-50, 50, (2, 40, 14)).astype(np.float32)
+    want[:, :4, 0] = [12.345645, 12.345655, 12.34566, 12.345662]
+    want[:, :4, 1] = [1.0, 2.0, 3.0, 4.0]
+    want[:, 30:] = 0.0  # padding rows, identical
+    noise = np.zeros_like(want)
+    noise[..., 0] = rng.choice([-1e-5, 1e-5], want.shape[:-1])
+    perm = rng.permutation(40)
+    got = (want + noise)[:, perm]
+    matched = match_rows(got, want)
+    np.testing.assert_allclose(matched, want, rtol=0, atol=1.5e-5)
+    assert not np.allclose(got, want, atol=1e-3)  # shuffled before
+
+
+@pytest.mark.parametrize("overrides,paths", [
+    ({}, PATHS),
+    ({"road_obs_algorithm": "linear"}, PATHS),
+    ({"agent_bucket": "auto"}, PATHS),
+    ({"reward_type": "distance_to_logs"}, PATHS),
+    # the observation, dynamics and collision options, on 3 worlds
+    ({"norm_obs": False}, PATHS3),
+    ({"partner_obs": False}, PATHS3),
+    ({"disable_classic_obs": True}, PATHS3),
+    ({"dynamics_model": "bicycle", "collision_behavior": "remove"}, PATHS3),
+    ({"dynamics_model": "delta_local", "collision_behavior": "stop"}, PATHS3),
+    ({"init_steps": 5}, PATHS3),
+    ({"num_stack": 2}, PATHS3),
+], ids=["knn", "linear", "agent-bucket", "distance-to-logs", "unnormalised",
+        "no-partner-obs", "no-classic-obs", "bicycle-remove",
+        "delta-local-stop", "init-steps-5", "stack-2"])
+def test_obs_rewards_dones_match(overrides, paths):
+    env, jenv = _envs(paths, **overrides)
     linear = overrides.get("road_obs_algorithm") == "linear"
-    assert_obs_match(env, jenv, env.get_obs(), jenv.get_obs(),
-                     ordered_roads=linear)
-    assert env.get_obs().shape[-1] == 3368
+    obs = env.get_obs()
+    assert_obs_match(env, jenv, obs, jenv.get_obs(), ordered_roads=linear)
+    assert obs.shape[-1] == env.spec.obs_dim * env.config.num_stack
+    assert env.spec.obs_dim == (
+        0 if overrides.get("disable_classic_obs")
+        else 3368 - P if overrides.get("partner_obs") is False else 3368)
     rng = np.random.default_rng(1)
     W, A = env.num_worlds, env.max_agent_count
     for _ in range(4):

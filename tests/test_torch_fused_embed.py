@@ -1,7 +1,8 @@
 """Kernel K3 (fused embed + max-pool forward): the port's plain version
 against the JAX package's fused_embed_pool (Pallas, interpret mode on the
 CPU) and reference_embed_pool, at rtol = atol = 1e-5, the JAX package's own
-bar (tests/test_fused_embed.py)."""
+bar (tests/test_fused_embed.py); and in compute dtype bfloat16 against
+fused_embed_pool with meta (act, "bfloat16"), at the bars stated below."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,10 +10,13 @@ import pytest
 import torch
 
 from gpudrive_lab_tpu.networks.fused_embed import (
+    _fused_fwd_impl as jax_fused_fwd,
     fused_embed_pool as jax_fused,
     reference_embed_pool as jax_reference,
 )
 from gpudrive_lab_torch.networks.fused_embed import (
+    _embed,
+    bf16_flip_bound,
     fused_embed_pool,
     fused_embed_pool_fwd,
     reference_embed_pool,
@@ -54,6 +58,49 @@ def test_plain_matches_jax(B, E, F, act):
         reference_embed_pool(torch.from_numpy(x), *tparams, act).numpy(),
         want_ref, rtol=1e-5, atol=1e-5,
     )
+
+
+# Bars of the bf16 compute dtype.  Both sides compute the products of
+# bf16-rounded operands exactly and sum them in float32, in another order,
+# so the float32 values they round to bf16 (the activation output t before
+# layer 2) agree to a few ulps; where one lies that close to a bf16
+# rounding boundary the two round it apart, a flip that moves y by at most
+# bf16_flip_bound (one bf16 ulp of t, <= 2^-7 |t|, times max |w2|).  Bars:
+# every pooled entry within BF16_FLIPS flips, at most 1% of the entries
+# beyond 1e-5 (the sum order alone moves them by ~1e-6), and the argmax
+# equal wherever the top two differ by more than twice that bar.
+BF16_FLIPS = 4
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,E,F", [
+    (48, 37, 13),   # E not a multiple of 16, unaligned B
+    (32, 127, 6),   # the partner block
+    (32, 200, 13),  # the road block
+])
+@pytest.mark.parametrize("act", ["tanh", "gelu"])
+def test_plain_bf16_matches_jax(B, E, F, act, x_dtype):
+    x, params = _inputs(B + E + F + 1, B, E, F)
+    tparams = [torch.from_numpy(p) for p in params]
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    jx = jnp.asarray(tx.float().numpy()).astype(getattr(jnp, x_dtype))
+    before = fused_embed_pool_fwd.launches
+    got, arg = fused_embed_pool_fwd(tx, *tparams, act, torch.bfloat16)
+    assert fused_embed_pool_fwd.launches == before  # CPU: plain version
+    want, jarg = (np.asarray(v) for v in jax_fused_fwd(
+        jx, *map(jnp.asarray, params), (act, "bfloat16")))
+    bar = BF16_FLIPS * bf16_flip_bound(act, *tparams[2:5])
+    err = np.abs(got.numpy() - want)
+    assert err.max() <= bar, (err.max(), bar)
+    assert (err > 1e-5).mean() <= 0.01, (err > 1e-5).sum()
+    y = _embed(tx, *tparams, act, torch.bfloat16)
+    top2 = y.topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 2 * bar).numpy()
+    assert clear.sum() >= 50  # enough clear units to mean something
+    np.testing.assert_array_equal(arg.numpy()[clear], jarg[clear])
+    np.testing.assert_array_equal(
+        fused_embed_pool(tx, *tparams, act, torch.bfloat16).numpy(),
+        got.numpy())
 
 
 def test_argmax_and_strided_rows():
@@ -110,3 +157,23 @@ def test_wrapper_rejects_bad_inputs():
                              *tparams[1:])
     with pytest.raises(ValueError):  # entity rows not contiguous
         fused_embed_pool_fwd(torch.from_numpy(x).transpose(1, 2), *tparams)
+
+
+def test_wrapper_checks_the_compute_dtype():
+    """x may be bfloat16 only in compute dtype bfloat16; the parameters are
+    float32 in both; other compute dtypes are refused."""
+    x, params = _inputs(5, 4, 5, 6)
+    tparams = [torch.from_numpy(p) for p in params]
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_embed_pool_fwd(xb, *tparams)
+    with pytest.raises(TypeError):
+        fused_embed_pool_fwd(xb, *[t.to(torch.bfloat16) for t in tparams],
+                             "tanh", torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_embed_pool_fwd(torch.from_numpy(x), *tparams, "tanh",
+                             torch.float16)
+    got, _ = fused_embed_pool_fwd(xb, *tparams, "tanh", torch.bfloat16)
+    want, _ = fused_embed_pool_fwd(xb.float(), *tparams, "tanh",
+                                   torch.bfloat16)
+    assert got.dtype == torch.float32 and torch.equal(got, want)

@@ -9,6 +9,10 @@ Inputs are continuous draws, so no two entities tie for a pooled maximum:
 there the port sends the cotangent to one winner (the smallest index, as
 K3 picks it) while ``jnp.max`` splits it; the gradients differ only on
 such exact ties.
+
+In compute dtype bfloat16 the plain version is held against ``jax.vjp`` of
+``fused_embed_pool`` with meta (act, "bfloat16") and fed the JAX forward's
+argmax, so tie rules drop out (bars in ``test_plain_bf16_grads_match_jax``).
 """
 
 import jax
@@ -18,10 +22,14 @@ import pytest
 import torch
 
 from gpudrive_lab_tpu.networks.fused_embed import (
+    _fused_fwd_impl as jax_fused_fwd,
     fused_embed_pool as jax_fused,
     reference_embed_pool as jax_reference,
 )
 from gpudrive_lab_torch.networks.fused_embed import (
+    BF16_PRODUCT_BAR,
+    bf16_product_error,
+    bwd_product_rss,
     fused_embed_pool,
     fused_embed_pool_bwd,
     fused_embed_pool_fwd,
@@ -76,6 +84,82 @@ def test_param_grads_match_jax(B, E, F, act):
             assert a.shape == b.shape, name
             np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5,
                                        err_msg=name)
+
+
+def _jax_bf16_case(B, E, F, act, x_dtype):
+    """The port's inputs (x stored in ``x_dtype``), the JAX forward's
+    argmax and ``jax.vjp`` of the JAX op in compute dtype bfloat16."""
+    x, params, co = _inputs(B * E + F + 1, B, E, F)
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    jx = jnp.asarray(tx.float().numpy()).astype(getattr(jnp, x_dtype))
+    jp = [jnp.asarray(p) for p in params]
+    meta = (act, "bfloat16")
+    _, jarg = jax_fused_fwd(jx, *jp, meta)
+    _, vjp = jax.vjp(lambda *p: jax_fused(jx, *p, meta), *jp)
+    want = [np.asarray(g) for g in vjp(jnp.asarray(co))]
+    args = (tx, *[torch.from_numpy(p) for p in params],
+            torch.from_numpy(np.array(jarg)), torch.from_numpy(co))
+    return args, want
+
+
+BF16_CASES = [
+    (40, 23, 13, "tanh"),    # B not a multiple of the Pallas row tile
+    (40, 23, 13, "gelu"),
+    (64, 127, 6, "tanh"),    # the partner block
+    (64, 200, 13, "gelu"),   # the road block
+]
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,E,F,act", BF16_CASES)
+def test_plain_bf16_grads_match_jax(B, E, F, act, x_dtype):
+    """Compute dtype bfloat16.  db1, dg, dbe and db2 sum unrounded float32
+    values, which the two sides add in another order: the JAX package's
+    float32 bar above.  dw1 and dw2 sum products of operands rounded to
+    bf16 (dpre and t), which the two sides can round apart where a float32
+    value lies within a few ulps of a rounding boundary: their error, as a
+    share of the terms' root-sum-square, is held at
+    ``BF16_PRODUCT_BAR`` = 2^-12 (derived in fused_embed.py; 4.7e-7 to
+    3.4e-5 here, while a version that skips a rounding reads 1.4e-3 to
+    1.7e-3: ``test_bf16_bar_rejects_a_missing_rounding``)."""
+    args, want = _jax_bf16_case(B, E, F, act, x_dtype)
+    before = fused_embed_pool_bwd.launches
+    got = fused_embed_pool_bwd(*args, act, torch.bfloat16)
+    assert fused_embed_pool_bwd.launches == before  # CPU: the plain version
+    rss = bwd_product_rss(*args, act, torch.bfloat16)
+    for name, a, b in zip(NAMES, got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        if name in ("w1", "w2"):
+            err = bf16_product_error(a, torch.tensor(b),
+                                     rss[name == "w2"])
+            assert err <= BF16_PRODUCT_BAR, (name, err)
+        else:
+            np.testing.assert_allclose(a.numpy(), b, rtol=2e-4, atol=2e-5,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("control", ["t", "dpre", "float32"])
+@pytest.mark.parametrize("B,E,F,act", BF16_CASES)
+def test_bf16_bar_rejects_a_missing_rounding(B, E, F, act, control):
+    """The controls of the bar above: the plain backward with t (dw2's
+    operand) or dpre (dw1's) left unrounded, or computed in float32, against
+    the same JAX gradients, must exceed ``BF16_PRODUCT_BAR`` on the
+    gradient whose rounding it skips, while the sound version stays within
+    it on both."""
+    args, want = _jax_bf16_case(B, E, F, act, "bfloat16")
+    rss = bwd_product_rss(*args, act, torch.bfloat16)
+    if control == "float32":
+        got = reference_embed_pool_bwd(*args, act, torch.float32)
+        skipped = ("w1", "w2")
+    else:
+        got = reference_embed_pool_bwd(*args, act, torch.bfloat16,
+                                       unrounded=(control,))
+        skipped = ("w2",) if control == "t" else ("w1",)
+    for name in skipped:
+        i = NAMES.index(name)
+        err = bf16_product_error(got[i], torch.tensor(want[i]),
+                                 rss[name == "w2"])
+        assert err > BF16_PRODUCT_BAR, (name, err)
 
 
 def test_padding_rows_send_no_gradient():

@@ -12,7 +12,8 @@ JAX package's on the same inputs, on the CPU.
     trajectory and minibatch order: losses and parameters within 1e-4 (the
     ROADMAP bar), Adam's moments beside them, over the dense, per-world and
     flat layouts, the remat and stored (flat, split, bfloat16) obs stores,
-    with fused_embed off and on.
+    with fused_embed off and on; and with the bf16 policy dtype in three
+    layouts, at the bars of ``bf16_bars``.
 
 The rollouts start 5 steps before the episodes end, so that worlds finish
 and are reset inside them.
@@ -36,10 +37,7 @@ from gpudrive_lab_tpu.ppo.ppo import compute_gae as jax_compute_gae
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core import step as stepmod
 from gpudrive_lab_torch.env.env_torch import flat_observation
-from gpudrive_lab_torch.networks.convert import (
-    adam_state_from_optax,
-    params_from_flax,
-)
+from gpudrive_lab_torch.networks.convert import params_from_flax
 from gpudrive_lab_torch.networks.late_fusion import (
     LateFusionPolicy,
     PolicyConfig,
@@ -50,12 +48,14 @@ from gpudrive_lab_torch.rollout import slice_env
 from torch_parity import (
     POOL_SCENES,
     assert_states_match,
+    assert_trainer_matches,
+    bf16_bars,
     flax_variables,
     jax_minibatch_order,
     jax_params,
     jax_ppo,
+    match_rows,
     scene_to_jax,
-    sorted_rows,
     state_to_jax,
     traj_to_jax,
 )
@@ -154,7 +154,7 @@ def test_compacted_observations_match_jax(setup, layout):
         road_m = np.concatenate([road, rmask.numpy()[..., None]], -1)
         jroad_m = np.concatenate(
             [np.asarray(jobs[2]), np.asarray(jrmask)[..., None]], -1)
-        np.testing.assert_allclose(sorted_rows(road_m), sorted_rows(jroad_m),
+        np.testing.assert_allclose(match_rows(road_m, jroad_m), jroad_m,
                                    atol=1e-5)
 
 
@@ -210,6 +210,17 @@ UPDATES = {
     "flat-remat-rows-clip-vloss": dict(
         LAYOUTS["flat"], minibatch_rows=8, num_minibatches=4,
         clip_vloss=True),
+    # the bf16 policy dtype: the JAX package's production pairing (split
+    # bf16 store, fused), the recomputed f32 obs, and an unfused layout
+    "flat-split-bf16-fused-bf16policy": dict(
+        LAYOUTS["flat"], remat_obs=False, obs_store="split",
+        obs_store_dtype="bfloat16", fused_embed=True,
+        policy_dtype="bfloat16"),
+    "flat-remat-fused-bf16policy": dict(
+        LAYOUTS["flat"], fused_embed=True, policy_dtype="bfloat16"),
+    "world-bf16-bf16policy": dict(
+        LAYOUTS["world"], remat_obs=False, obs_store_dtype="bfloat16",
+        policy_dtype="bfloat16"),
 }
 
 
@@ -228,23 +239,6 @@ def jax_update(env, cfg, variables, carry, traj, key):
     return jvars, jopt, metrics
 
 
-def assert_trainer_matches(ppo, jvars, jopt, tol=1e-4):
-    """Every parameter within tol of the JAX one; Adam's moments and step
-    count beside them."""
-    want = params_from_flax(jvars)
-    got = ppo.policy.state_dict()
-    for k, v in want.items():
-        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0,
-                                   atol=tol, err_msg=k)
-    adam = adam_state_from_optax(jopt, ppo.policy)
-    for i, p in enumerate(ppo.policy.parameters()):
-        st = ppo.optimizer.state[p]
-        assert float(st["step"]) == float(adam[i]["step"])
-        for k in ("exp_avg", "exp_avg_sq"):
-            np.testing.assert_allclose(st[k].numpy(), adam[i][k].numpy(),
-                                       rtol=1e-3, atol=1e-6, err_msg=k)
-
-
 @pytest.mark.parametrize("name", list(UPDATES))
 def test_update_matches_jax(setup, name):
     env, variables, state = setup
@@ -256,14 +250,28 @@ def test_update_matches_jax(setup, name):
     perms, starts = jax_minibatch_order(key, cfg)
     m = ppo.update(env.scene, carry, traj, env.reward_weights, perms=perms,
                    row_starts=starts)
+    # bf16 policy: logits and values carry bf16's 2^-8 relative rounding
+    bf16 = cfg.policy_dtype == "bfloat16"
     for k in ("pg_loss", "v_loss", "entropy", "approx_kl"):
-        assert abs(float(m[k]) - float(jm[k])) <= 1e-4, (k, m[k], jm[k])
+        bar = 1e-4 + (1e-2 * abs(float(jm[k])) if bf16 else 0.0)
+        assert abs(float(m[k]) - float(jm[k])) <= bar, (k, m[k], jm[k])
     for k in ("samples", "episodes", "mean_reward", "perc_goal_achieved",
               "perc_collisions", "perc_off_road"):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-6,
                                    err_msg=k)
     assert float(m["samples"]) == float(traj.mask.sum())
-    assert_trainer_matches(ppo, jvars, jopt)
+    if not bf16:
+        assert_trainer_matches(ppo, jvars, jopt)
+        return
+    bars = bf16_bars(cfg, params_from_flax(variables))
+    assert_trainer_matches(ppo, jvars, jopt, loose=bars)
+    # the control: the same update with one small leaf (the partner
+    # block's LayerNorm bias) left where it started must fail the bars
+    leaf = "partner_embed.1.bias"
+    with torch.no_grad():
+        ppo.policy.state_dict()[leaf].copy_(bars["start"][leaf])
+    with pytest.raises(AssertionError, match=leaf):
+        assert_trainer_matches(ppo, jvars, jopt, loose=bars)
 
 
 def test_update_per_minibatch_losses_match_jax(setup):

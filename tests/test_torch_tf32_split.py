@@ -10,6 +10,12 @@ it to K3's bars on the card against ``reference_embed_pool_argmax``:
 pooled max abs error <= 1e-4, and the argmax equal wherever the top two
 values differ by more than 1e-5.  One TF32 pass breaks the argmax bar,
 which is why K3 takes three.
+
+K3's bf16 compute mode takes route (a): one TF32 pass over operands rounded
+to bf16.  The last tests check, with the same emulation, that bf16 values
+are fixed points of the TF32 rounding and that one emulated TF32 pass over
+bf16-rounded operands gives the plain bf16 version's bits on the same real
+observations.
 """
 
 import os
@@ -106,6 +112,46 @@ def test_one_tf32_pass_breaks_the_argmax_bar(blocks, name):
     x, w = blocks[name]
     _, wrong, _ = _bars(x, w, passes=1)
     assert wrong > 0
+
+
+def embed_tf32_over_bf16(x, w1, b1, g, be, w2, b2):
+    """Route (a) of K3's bf16 mode: the operands of both products rounded
+    to bf16, then one emulated TF32 pass, the rest in fp32."""
+    r = fe.round_bf16
+    pre = product(r(x.float()), r(w1), b1, passes=1)
+    mu = pre.mean(dim=-1, keepdim=True)
+    var = ((pre - mu) * (pre - mu)).mean(dim=-1, keepdim=True)
+    xh = (pre - mu) * torch.rsqrt(var + fe.LN_EPS)
+    return product(r(torch.tanh(xh * g + be)), r(w2), b2, passes=1)
+
+
+def test_bf16_values_are_tf32_fixed_points():
+    """TF32 keeps 10 mantissa bits and bf16 7: rounding a bf16 value to
+    TF32 changes no bit, for normal, subnormal, huge and signed values and
+    for the halfway cases of the bf16 rounding itself."""
+    r = torch.randn(100000, generator=torch.Generator().manual_seed(2))
+    special = torch.tensor([0.0, -0.0, 1.0, -1.0, 1.0 + 2.0 ** -8,
+                            1.0 + 3 * 2.0 ** -8, 3.0e38, -3.0e38, 1.0e-39,
+                            1.2e-38, 65504.0, 2.0 ** -126])
+    for v in (r, r * 1e4, r * 1e-30, special):
+        b = fe.round_bf16(v)
+        assert torch.equal(tf32(b).view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["partner", "road"])
+def test_one_tf32_pass_over_bf16_operands_is_the_bf16_mode(blocks, name):
+    """On the real pool blocks with the slice policy's weights, one
+    emulated TF32 pass over bf16-rounded operands gives the bits of the
+    plain version of K3's bf16 mode (reference_embed_pool_argmax with
+    compute_dtype bfloat16), x stored in float32 or bf16."""
+    x, w = blocks[name]
+    with torch.no_grad():
+        pooled, arg = embed_tf32_over_bf16(x, *w).max(dim=1)
+        for xs in (x, x.to(torch.bfloat16)):
+            want, want_arg = fe.reference_embed_pool_argmax(
+                xs, *w, "tanh", torch.bfloat16)
+            assert torch.equal(pooled, want)
+            assert torch.equal(arg.to(torch.int32), want_arg)
 
 
 def test_tf32_rounding():

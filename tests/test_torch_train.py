@@ -6,9 +6,11 @@ carrying of state between the two packages, on the CPU:
     options accepted as aliases with the same samples and metrics;
   * checkpoints: the port's own round trip, and a JAX trainer's policy.pkl
     (parameters and Adam state) resumed in the port, where one further
-    update matches the JAX update to 1e-4;
+    update matches the JAX update to 1e-4 (with the bf16 policy dtype, at
+    the bars of torch_parity.bf16_bars);
   * the CLI: trains 2 iterations on 2 worlds, writes a checkpoint that
-    --continue-training resumes, and refuses what is not ported yet.
+    --continue-training resumes (also with --policy-dtype bf16), and
+    refuses what is not ported yet.
 """
 
 import json
@@ -36,6 +38,8 @@ from torch_parity import (
     POOL_SCENES,
     ROOT,
     assert_states_match,
+    assert_trainer_matches,
+    bf16_bars,
     flax_variables,
     jax_minibatch_order,
     jax_ppo,
@@ -124,8 +128,14 @@ def test_dispatch_options_are_aliases(env):
                   dict(rollout_mode="nope")):
         with pytest.raises(ValueError):
             train.build_trainer(env, PPOConfig(**SMALL), **build)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.build_trainer(env, PPOConfig(**SMALL, policy_dtype="bfloat16"))
+    # the bf16 policy dtype builds a bf16 policy that trains an iteration
+    ppo, carry, fresh, fn = train.build_trainer(
+        env, PPOConfig(**SMALL, policy_dtype="bfloat16"), seed=3)
+    assert ppo.policy.config.dtype == torch.bfloat16
+    _, m = fn(env.scene, carry, fresh, env.reward_weights)
+    assert all(bool(torch.isfinite(v).all()) for v in m.values())
+    with pytest.raises(ValueError):
+        train.build_trainer(env, PPOConfig(**SMALL, policy_dtype="float16"))
 
 
 def test_checkpoint_round_trip(env, tmp_path):
@@ -148,7 +158,24 @@ def test_jax_checkpoint_resumes_in_the_port(env, tmp_path):
     """A JAX update's parameters and optax Adam state, saved by the JAX
     trainer's save_checkpoint, load into the port; one further update on
     the same trajectory and minibatch order then matches the JAX one."""
-    cfg = PPOConfig(**SMALL, compact=16, compact_mode="flat")
+    _resume_jax_checkpoint(env, tmp_path, PPOConfig(
+        **SMALL, compact=16, compact_mode="flat"))
+
+
+def test_jax_bf16_checkpoint_resumes_in_the_port(env, tmp_path):
+    """The same with the bf16 policy dtype (JAX's production pairing: split
+    bf16 store, fused embed): the checkpoint holds float32 parameters and
+    Adam state as with float32, so it loads through the same path, and the
+    further update matches the JAX one at torch_parity.bf16_bars (the
+    losses within 1e-4 + 1e-2 of their size, bf16's rounding)."""
+    _resume_jax_checkpoint(env, tmp_path, PPOConfig(
+        **SMALL, compact=16, compact_mode="flat", fused_embed=True,
+        remat_obs=False, obs_store="split", obs_store_dtype="bfloat16",
+        policy_dtype="bfloat16"))
+
+
+def _resume_jax_checkpoint(env, tmp_path, cfg):
+    bf16 = cfg.policy_dtype == "bfloat16"
     ppo, carry, fresh, _ = train.build_trainer(env, cfg, seed=1)
     variables = flax_variables(seed=3, action_dim=env.action_space_n)
     ppo.policy.load_state_dict(convert.params_from_flax(variables))
@@ -177,20 +204,28 @@ def test_jax_checkpoint_resumes_in_the_port(env, tmp_path):
     jvars, jopt, _, jm = jax.tree.map(np.asarray, jax_update(jvars, jopt,
                                                              key))
     perms, _ = jax_minibatch_order(key, cfg)
+    start = {k: v.clone() for k, v in other.policy.state_dict().items()}
     m = other.update(env.scene, carry, traj, env.reward_weights, perms=perms)
     for k in ("pg_loss", "v_loss", "entropy", "approx_kl"):
-        assert abs(float(m[k]) - float(jm[k])) <= 1e-4, k
-    want = convert.params_from_flax(jvars)
-    for k, v in other.policy.state_dict().items():
-        np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=1e-4,
-                                   err_msg=k)
-    adam = convert.adam_state_from_optax(jopt, other.policy)
-    for i, p in enumerate(other.policy.parameters()):
-        assert float(other.optimizer.state[p]["step"]) == float(
-            adam[i]["step"]) == 8.0  # two updates of 2 x 2 minibatches
-        np.testing.assert_allclose(
-            other.optimizer.state[p]["exp_avg"].numpy(),
-            adam[i]["exp_avg"].numpy(), rtol=1e-3, atol=1e-6)
+        bar = 1e-4 + (1e-2 * abs(float(jm[k])) if bf16 else 0.0)
+        assert abs(float(m[k]) - float(jm[k])) <= bar, k
+    if not bf16:
+        want = convert.params_from_flax(jvars)
+        for k, v in other.policy.state_dict().items():
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=1e-4,
+                                       err_msg=k)
+        adam = convert.adam_state_from_optax(jopt, other.policy)
+        for i, p in enumerate(other.policy.parameters()):
+            assert float(other.optimizer.state[p]["step"]) == float(
+                adam[i]["step"]) == 8.0  # two updates of 2 x 2 minibatches
+            np.testing.assert_allclose(
+                other.optimizer.state[p]["exp_avg"].numpy(),
+                adam[i]["exp_avg"].numpy(), rtol=1e-3, atol=1e-6)
+    else:  # step counts equal there too
+        assert_trainer_matches(other, jvars, jopt,
+                               loose=bf16_bars(cfg, start))
+        for p in other.optimizer.state.values():
+            assert float(p["step"]) == 8.0
 
 
 def _cli(*args, timeout=300):
@@ -226,9 +261,32 @@ def test_cli_trains_and_resumes(tmp_path):
     assert lines[-1] == {"final_global_step": 264}
 
 
+def test_cli_trains_bf16_and_resumes(tmp_path):
+    """--policy-dtype bf16 with the split bf16 store and the fused embed:
+    2 iterations on 2 worlds, a checkpoint of float32 parameters, and
+    --continue-training resumes from its global step."""
+    data = tmp_path / "scenes"
+    data.mkdir()
+    for p in PATHS:
+        (data / os.path.basename(p)).write_text(Path(p).read_text())
+    common = ["--device", "cpu", "--num-worlds", "2", "--rollout-len", "8",
+              "--num-minibatches", "2", "--update-epochs", "1",
+              "--agent-bucket", "auto", "--compact", "16", "--compact-mode",
+              "flat", "--policy-dtype", "bf16", "--obs-store", "split-bf16",
+              "--fused-embed", "--checkpoint-path", str(tmp_path),
+              "--data-dir", str(data)]
+    lines = _cli(*common, "--total-timesteps", "150")
+    assert lines[-1] == {"final_global_step": 176}
+    ckpt = torch.load(tmp_path / train.CHECKPOINT)
+    assert all(v.dtype == torch.float32 for v in ckpt["policy"].values())
+    lines = _cli(*common, "--total-timesteps", "200", "--continue-training")
+    assert {"resumed_from": 176} in lines
+    assert lines[-1] == {"final_global_step": 264}
+
+
 def test_cli_refuses_what_is_not_ported():
     for flag in (["--resample-interval", "5"], ["--video-interval", "1"],
-                 ["--dashboard"], ["--policy-dtype", "bf16"]):
+                 ["--dashboard"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             train.main(["--device", "cpu", *flag])
 
