@@ -650,7 +650,7 @@ def bf16_train_phase(env, gen, f32: dict) -> tuple[dict, dict]:
     k3 = dict(store_err=0.0)
     k4 = dict(name="K4-bf16 fused_embed_pool_bwd, bf16 compute mode",
               route="cuda",
-              source="gpudrive_lab_torch/csrc/fused_embed_bwd.cu",
+              source="gpudrive_lab_torch/csrc/fused_embed_bwd_bf16.cu",
               replaces="gpudrive_lab_tpu/networks/fused_embed.py:251",
               library_ms=None, ms=0.0, plain_ms=0.0, bound_ms=0.0,
               max_abs_err=0.0, bar_readings={},
@@ -952,7 +952,7 @@ def main() -> int:
     for name, text in logs.items():
         for line in text.splitlines():
             if ("entry function" in line or "registers" in line
-                    or "spill" in line):
+                    or "spill" in line or "Performance Loss" in line):
                 print(f"[build] {name}: {line.strip()}")
 
     # ---- phase 2: the slice's env and the kernels against their plain
@@ -1037,7 +1037,8 @@ def main() -> int:
     # store holds it; its record's ms, bound and plain time are those of a
     # minibatch of the bf16 store (35,328 rows, bf16 x)
     k3b = dict(name="K3-bf16 fused_embed_pool_fwd, bf16 compute mode",
-               route="cuda", source="gpudrive_lab_torch/csrc/fused_embed.cu",
+               route="cuda",
+               source="gpudrive_lab_torch/csrc/fused_embed_bf16.cu",
                replaces="gpudrive_lab_tpu/networks/fused_embed.py:207",
                library_ms=None, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                max_abs_err=0.0,
@@ -1046,6 +1047,10 @@ def main() -> int:
                       "1e-5, the winner within that bar of the plain "
                       "maximum, argmax equal where the top two differ by "
                       "more than twice it; two launches bitwise equal")
+    # the same kernel at the PPO rollout's 4,416 rows, its own record
+    k3b4 = dict(k3b, name="K3-bf16 fused_embed_pool_fwd, bf16 compute mode, "
+                "4,416 rows")
+    k3b_recs = {35328: k3b, 4416: k3b4}
     k3b_rows = {}
     k3b_by = {}
     with torch.no_grad():
@@ -1107,14 +1112,15 @@ def main() -> int:
                     line = (f"[K3-bf16] {bname} [{rows},{Ent},{F}] {dname} x:"
                             f" kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}; "
                             f"bf16 products at the bf16 tensor-core rate)")
-                    if rows == 35328 and xd.dtype == torch.bfloat16:
+                    if rows in k3b_recs and xd.dtype == torch.bfloat16:
                         xr = xd[:rows]
                         plain = time_ms(lambda: fe.reference_embed_pool_argmax(
                             xr, *w, "tanh", torch.bfloat16), 3)
-                        k3b["ms"] += ms
-                        k3b["bound_ms"] += bms
-                        k3b["plain_ms"] += plain
-                        k3b_by[bname] = by
+                        rec = k3b_recs[rows]
+                        rec["ms"] += ms
+                        rec["bound_ms"] += bms
+                        rec["plain_ms"] += plain
+                        k3b_by[(rows, bname)] = by
                         line += f", plain {plain:.4f} ms"
                     print(line)
             del xd, xr  # the bf16 copy: nothing of it stays on the card
@@ -1124,12 +1130,18 @@ def main() -> int:
               f"{sum(v[1] for v in rec.values()):.4f} ms")
     k3b["ms_by_rows"] = {key: sum(v[0] for v in rec.values())
                          for key, rec in k3b_rows.items()}
-    k3b["bound_by"] = k3b_by["road"]
+    k3b["bound_by"] = k3b_by[(35328, "road")]
     k3b["shape"] = ("partner [35328,127,6] + road [35328,200,13] bfloat16 "
                     "per minibatch forward; checked at 65,536 rows in "
                     "float32 and bfloat16 x, and on the bf16 store at 4,416 "
                     "and 35,328 rows")
+    k3b4["bound_by"] = k3b_by[(4416, "road")]
+    k3b4["max_abs_err"] = k3b["max_abs_err"]
+    k3b4["shape"] = ("partner [4416,127,6] + road [4416,200,13] bfloat16 "
+                     "per PPO rollout step; launches are K3-bf16's, all row "
+                     "counts")
     results["K3-bf16"] = k3b
+    results["K3-bf16, 4,416 rows"] = k3b4
     for rows, rec in k3_rows.items():
         ms, bms, fms = (sum(v[i] for v in rec.values()) for i in range(3))
         print(f"[K3] partner + road at {rows} rows: {ms:.4f} ms, bound "
@@ -1254,9 +1266,10 @@ def main() -> int:
 
     # ---- phase 5b: PPO with the bf16 policy dtype (K3/K4 bf16 mode) -------
     k3b_train, results["K4-bf16"] = bf16_train_phase(env, gen, f32_train)
-    results["K3-bf16"]["launches"] = k3b_train["launches"]
-    results["K3-bf16"]["max_abs_err"] = max(results["K3-bf16"]["max_abs_err"],
-                                            k3b_train["store_err"])
+    for key in ("K3-bf16", "K3-bf16, 4,416 rows"):
+        results[key]["launches"] = k3b_train["launches"]
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                          k3b_train["store_err"])
     results["K4-bf16"]["max_abs_err"] = max(results["K4-bf16"]["max_abs_err"],
                                             k4b_f32x_err)
 
@@ -1315,7 +1328,8 @@ def main() -> int:
         results[key]["large_map"] = rec
 
     line = {"kernels": []}
-    for key in ("K1", "K2", "K3", "K4", "K3-bf16", "K4-bf16"):
+    for key in ("K1", "K2", "K3", "K4", "K3-bf16", "K3-bf16, 4,416 rows",
+                "K4-bf16"):
         r = results[key]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

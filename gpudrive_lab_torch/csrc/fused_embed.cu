@@ -1,8 +1,8 @@
 // Fused embed + max-pool forward: kernel K3, on the tensor cores (wgmma).
 //
-// For each row b and entity e of x [B, E, F] (float32, or bf16 in the bf16
-// compute mode; each row's E*F values contiguous, rows row_stride elements
-// apart, so a slice of the flat observation is read in place):
+// For each row b and entity e of x [B, E, F] (float32; each row's E*F
+// values contiguous, rows row_stride elements apart, so a slice of the
+// flat observation is read in place):
 //   pre = x[b, e] @ w1 + b1                      (w1 [F, 64], as flax stores it)
 //   xh  = (pre - mean(pre)) / sqrt(var(pre) + 1e-6)   (f32 statistics)
 //   t   = act(xh * g + be)                       (tanh, or gelu's tanh form)
@@ -54,20 +54,7 @@
 // warps of a block run the same number of tiles in step, as wgmma needs; a
 // warp past the last row sees no entities.
 //
-// bf16 compute mode (fused_embed_pool_fwd_bf16).  The JAX package's
-// compute dtype bfloat16 rounds the operands of both products to bf16
-// (round to nearest even: x, w1, the activation output t and w2) and sums
-// the products in f32; biases, LayerNorm statistics, tanhf and the max stay
-// f32.  Route: one TF32 pass.  A bf16 value is exact in TF32 (7 mantissa
-// bits against 10), so one wgmma.m64n64k8 TF32 pass over operands rounded
-// to bf16 gives exactly the bf16 x bf16 products with fp32 sums, on the
-// fragment layout above: the weights sit in shared memory as bf16 values
-// (no lo part) and each product is one pass where 3xTF32 takes three.  x is
-// read as stored, float32 or bf16 (2-byte values at any 2-byte alignment
-// of the flat row).  Bound: the products once at the TF32 rate, the rest
-// on the fp32 cores as above, against x at its stored width.  Native bf16
-// wgmma (m64n64k16, twice the TF32 rate) needs another fragment packing
-// and is left to a later redesign.
+// The bf16 compute mode is K3-bf16, in fused_embed_bf16.cu.
 //
 // Argmax rule: a lane visits its entities in ascending order and replaces
 // its winner only on a strictly larger value; lanes combine by (larger
@@ -78,19 +65,17 @@
 // on every launch.
 //
 // Source note: replaces _fwd_kernel / _fused_fwd_impl of
-// gpudrive_lab_tpu/networks/fused_embed.py (:84-109, :198-228), in both
-// compute dtypes (its _embed_chunk, :69-82).
+// gpudrive_lab_tpu/networks/fused_embed.py (:84-109, :198-228) in
+// compute dtype float32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // (gpudrive_lab_torch/cuda_build.py; wgmma needs sm_90a).  C interface,
-// launched on the caller's stream; the entry points (fused_embed_pool_fwd
-// for float32, fused_embed_pool_fwd_bf16 for the bf16 compute mode) return
-// cudaGetLastError() after their launch.
+// launched on the caller's stream; fused_embed_pool_fwd returns
+// cudaGetLastError() after its launch.
 
 #include <climits>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -134,29 +119,8 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(v - __uint_as_float(hi));
 }
 
-// v rounded to the nearest bf16 (ties to even), as float32
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// a weight's tile entries: hi + lo in 3xTF32, the bf16 value alone in the
-// bf16 mode
-template <bool BF>
-__device__ __forceinline__ void stage(float v, uint32_t& hi, uint32_t& lo) {
-  if constexpr (BF) {
-    hi = __float_as_uint(round_bf16(v));
-    lo = 0u;
-  } else {
-    split(v, hi, lo);
-  }
-}
-
-// one element of x as float32: float32 as stored, or a bf16 value widened
+// one element of x
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<uint32_t>(u) << 16);
-}
 
 // shared-memory matrix descriptor of a k-step, no swizzle
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
@@ -216,30 +180,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4], float a0,
   wgmma_tf32(d, ah, dh);
 }
 
-// d += a @ b in the bf16 mode: the operands rounded to bf16, one TF32 pass
-// (exact products, fp32 sums); b's k-step tile holds bf16 values.  Issued,
-// not waited.
-__device__ __forceinline__ void mma_bf16(float (&d)[NT][4], float a0,
-                                         float a1, float a2, float a3,
-                                         const float* bh) {
-  const uint32_t ah[4] = {
-      __float_as_uint(round_bf16(a0)), __float_as_uint(round_bf16(a1)),
-      __float_as_uint(round_bf16(a2)), __float_as_uint(round_bf16(a3))};
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-  wgmma_tf32(d, ah, smem_desc(bh));
-}
-
-template <bool BF>
-__device__ __forceinline__ void mma(float (&d)[NT][4], float a0, float a1,
-                                    float a2, float a3, const float* bh,
-                                    const float* bl) {
-  if constexpr (BF) {
-    mma_bf16(d, a0, a1, a2, a3, bh);
-  } else {
-    mma_3xtf32(d, a0, a1, a2, a3, bh, bl);
-  }
-}
-
 __device__ __forceinline__ void wgmma_wait(float (&d)[NT][4]) {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -270,8 +210,8 @@ __device__ __forceinline__ void take_better(float& v, int& i, float ov, int oi) 
 
 // The A fragments of an m-tile's inputs: a0 (row g, col q), a1 (g+8, q),
 // a2 (g, q+4), a3 (g+8, q+4) of each k-step; zero outside [E, F).
-template <int KK1, typename XT>
-__device__ __forceinline__ void load_x(const XT* __restrict__ xr, int e0,
+template <int KK1>
+__device__ __forceinline__ void load_x(const float* __restrict__ xr, int e0,
                                        int E, int F, int lane,
                                        float (&xa)[KK1][4]) {
   const int g = lane >> 2, q = lane & 3;
@@ -288,7 +228,7 @@ __device__ __forceinline__ void load_x(const XT* __restrict__ xr, int e0,
 
 // Layer 1, LayerNorm and the activation of the warp's m-tile: t [16, 64]
 // as 8 accumulator fragments (rows g and g + 8, units nt*8 + 2q + {0, 1}).
-template <int ACT, int KK1, bool BF>
+template <int ACT, int KK1>
 __device__ __forceinline__ void layer1_act(const Smem& sm,
                                            const float (&xa)[KK1][4], int lane,
                                            float (&t)[NT][4]) {
@@ -304,7 +244,7 @@ __device__ __forceinline__ void layer1_act(const Smem& sm,
   pin(t);
 #pragma unroll
   for (int kk = 0; kk < KK1; ++kk) {
-    mma<BF>(t, xa[kk][0], xa[kk][1], xa[kk][2], xa[kk][3], sm.w1g[kk][0],
+    mma_3xtf32(t, xa[kk][0], xa[kk][1], xa[kk][2], xa[kk][3], sm.w1g[kk][0],
             sm.w1g[kk][1]);
   }
   wgmma_wait(t);
@@ -338,7 +278,6 @@ __device__ __forceinline__ void layer1_act(const Smem& sm,
 
 // Layer 2 of the warp's m-tile: y = t @ w2 + b2, with the accumulators of
 // entities past E starting at -inf.
-template <bool BF>
 __device__ __forceinline__ void layer2(const Smem& sm, const float (&t)[NT][4],
                                        int e0, int E, int lane,
                                        float (&y)[NT][4]) {
@@ -360,7 +299,7 @@ __device__ __forceinline__ void layer2(const Smem& sm, const float (&t)[NT][4],
   pin(y);
 #pragma unroll
   for (int kk = 0; kk < NT; ++kk) {
-    mma<BF>(y, t[kk][0], t[kk][2], t[kk][1], t[kk][3], sm.w2g[kk][0],
+    mma_3xtf32(y, t[kk][0], t[kk][2], t[kk][1], t[kk][3], sm.w2g[kk][0],
             sm.w2g[kk][1]);
   }
   wgmma_wait(y);
@@ -383,10 +322,9 @@ __device__ __forceinline__ void max_update(const float (&y)[NT][4], int e0,
   }
 }
 
-// BF: the bf16 compute mode; XT: x's stored type (float or __nv_bfloat16)
-template <int ACT, int KK1, bool BF, typename XT>
+template <int ACT, int KK1>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-embed_pool_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w1,
+embed_pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                       const float* __restrict__ b1, const float* __restrict__ g,
                       const float* __restrict__ be, const float* __restrict__ w2,
                       const float* __restrict__ b2, float* __restrict__ out,
@@ -402,7 +340,7 @@ embed_pool_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w1,
     const int kk = i / (8 * H), k = (i / H) % 8, n = i % H;
     const int src = kk * 8 + (k < 4 ? 2 * k : 2 * (k - 4) + 1);
     uint32_t hi, lo;
-    stage<BF>(w2[src * H + n], hi, lo);
+    split(w2[src * H + n], hi, lo);
     sm.w2g[kk][0][core_offset(k, n)] = __uint_as_float(hi);
     sm.w2g[kk][1][core_offset(k, n)] = __uint_as_float(lo);
   }
@@ -410,7 +348,7 @@ embed_pool_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w1,
     const int kk = i / (8 * H), k = (i / H) % 8, n = i % H;
     const int f = kk * 8 + k;
     uint32_t hi, lo;
-    stage<BF>(f < F ? w1[f * H + n] : 0.0f, hi, lo);
+    split(f < F ? w1[f * H + n] : 0.0f, hi, lo);
     sm.w1g[kk][0][core_offset(k, n)] = __uint_as_float(hi);
     sm.w1g[kk][1][core_offset(k, n)] = __uint_as_float(lo);
   }
@@ -439,15 +377,15 @@ embed_pool_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w1,
     }
     // every warp of the block runs T tiles in step; a warp past the last
     // row sees no entities
-    const XT* xr = x + (size_t)min(row, B - 1) * row_stride;
+    const float* xr = x + (size_t)min(row, B - 1) * row_stride;
     const int Er = row < B ? E : 0;
     float xa[KK1][4];
     load_x<KK1>(xr, 0, Er, F, lane, xa);
     for (int tc = 0; tc < T; ++tc) {
       float xn[KK1][4], t[NT][4], y[NT][4];
       load_x<KK1>(xr, (tc + 1) * MT, Er, F, lane, xn);
-      layer1_act<ACT, KK1, BF>(sm, xa, lane, t);
-      layer2<BF>(sm, t, tc * MT, Er, lane, y);
+      layer1_act<ACT, KK1>(sm, xa, lane, t);
+      layer2(sm, t, tc * MT, Er, lane, y);
       max_update(y, tc * MT, lane, bv, bi);
 #pragma unroll
       for (int kk = 0; kk < KK1; ++kk) {
@@ -480,11 +418,11 @@ embed_pool_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w1,
 }
 
 // Occupancy of one kernel instance, and its shared-memory opt-in, once.
-template <int ACT, int KK1, bool BF, typename XT>
+template <int ACT, int KK1>
 int blocks_per_sm() {
   static int nb = -1;
   if (nb < 0) {
-    auto kern = embed_pool_fwd_kernel<ACT, KK1, BF, XT>;
+    auto kern = embed_pool_fwd_kernel<ACT, KK1>;
     if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)sizeof(Smem)) != cudaSuccess) {
       return 0;
@@ -500,12 +438,12 @@ int blocks_per_sm() {
   return nb;
 }
 
-template <int ACT, int KK1, bool BF, typename XT>
-int launch(const XT* x, const float* w1, const float* b1, const float* g,
+template <int ACT, int KK1>
+int launch(const float* x, const float* w1, const float* b1, const float* g,
            const float* be, const float* w2, const float* b2, float* out,
            int* amax, int B, int E, int F, long long row_stride,
            cudaStream_t s) {
-  const int nb = blocks_per_sm<ACT, KK1, BF, XT>();
+  const int nb = blocks_per_sm<ACT, KK1>();
   int dev = 0, sms = 0;
   if (nb < 1 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -516,27 +454,26 @@ int launch(const XT* x, const float* w1, const float* b1, const float* g,
   const int resident = nb * sms;
   const int groups = (B + WARPS - 1) / WARPS;
   const int grid = groups < resident ? groups : resident;
-  embed_pool_fwd_kernel<ACT, KK1, BF, XT><<<grid, THREADS, sizeof(Smem), s>>>(
+  embed_pool_fwd_kernel<ACT, KK1><<<grid, THREADS, sizeof(Smem), s>>>(
       x, w1, b1, g, be, w2, b2, out, amax, B, E, F, row_stride);
   return (int)cudaGetLastError();
 }
 
-template <bool BF, typename XT>
-int dispatch(const XT* x, const float* w1, const float* b1, const float* g,
+int dispatch(const float* x, const float* w1, const float* b1, const float* g,
              const float* be, const float* w2, const float* b2, float* out,
              int* amax, int B, int E, int F, long long row_stride, int act,
              void* stream) {
   if (F < 1 || F > FMAX || E < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (F <= 8) {
-    return act == 0 ? launch<0, 1, BF>(x, w1, b1, g, be, w2, b2, out, amax, B,
+    return act == 0 ? launch<0, 1>(x, w1, b1, g, be, w2, b2, out, amax, B,
                                        E, F, row_stride, s)
-                    : launch<1, 1, BF>(x, w1, b1, g, be, w2, b2, out, amax, B,
+                    : launch<1, 1>(x, w1, b1, g, be, w2, b2, out, amax, B,
                                        E, F, row_stride, s);
   }
-  return act == 0 ? launch<0, 2, BF>(x, w1, b1, g, be, w2, b2, out, amax, B,
+  return act == 0 ? launch<0, 2>(x, w1, b1, g, be, w2, b2, out, amax, B,
                                      E, F, row_stride, s)
-                  : launch<1, 2, BF>(x, w1, b1, g, be, w2, b2, out, amax, B,
+                  : launch<1, 2>(x, w1, b1, g, be, w2, b2, out, amax, B,
                                      E, F, row_stride, s);
 }
 
@@ -550,23 +487,6 @@ extern "C" int fused_embed_pool_fwd(const float* x, const float* w1,
                                     int B, int E, int F,
                                     long long row_stride, int act,
                                     void* stream) {
-  return dispatch<false>(x, w1, b1, g, be, w2, b2, out, amax, B, E, F,
-                         row_stride, act, stream);
-}
-
-// the bf16 compute mode: x float32 (x_bf16 = 0) or bf16 (x_bf16 = 1), the
-// products' operands rounded to bf16; parameters float32
-extern "C" int fused_embed_pool_fwd_bf16(const void* x, const float* w1,
-                                         const float* b1, const float* g,
-                                         const float* be, const float* w2,
-                                         const float* b2, float* out,
-                                         int* amax, int B, int E, int F,
-                                         long long row_stride, int x_bf16,
-                                         int act, void* stream) {
-  if (x_bf16) {
-    return dispatch<true>(static_cast<const __nv_bfloat16*>(x), w1, b1, g, be,
-                          w2, b2, out, amax, B, E, F, row_stride, act, stream);
-  }
-  return dispatch<true>(static_cast<const float*>(x), w1, b1, g, be, w2, b2,
-                        out, amax, B, E, F, row_stride, act, stream);
+  return dispatch(x, w1, b1, g, be, w2, b2, out, amax, B, E, F, row_stride,
+                  act, stream);
 }

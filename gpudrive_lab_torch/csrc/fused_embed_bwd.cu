@@ -49,29 +49,17 @@
 // order (8 interleaved strands, then the strands in order).  No atomics:
 // the gradients are the same bits on every run.
 //
-// bf16 compute mode (fused_embed_pool_bwd_bf16), the JAX package's compute
-// dtype bfloat16 (fused_embed.py:136-172): the operands of every product
-// are rounded to bf16 (round to nearest even) and the products summed in
-// f32.  That is x and w1 in the winners' layer 1; t and the cotangent
-// dpool before the dw2 product; dpool and w2 before the dt product; x and
-// dpre before the dw1 product.  db2, dg, dbe and db1 stay sums of the
-// unrounded f32 values, and the LayerNorm statistics, the activation and
-// their backward stay f32.  A product of two bf16 values is exact in fp32,
-// so the products run on the fp32 cores as in float32, on rounded
-// operands; x is read as stored, float32 or bf16.  Same design, same
-// bound (bwd_flops; the winners' x is a small part of the bytes).
+// The bf16 compute mode is K4-bf16, in fused_embed_bwd_bf16.cu.
 //
 // Source note: replaces _bwd_kernel / _fused_bwd of
-// gpudrive_lab_tpu/networks/fused_embed.py (:112-172, :236-280), in both
-// compute dtypes.
+// gpudrive_lab_tpu/networks/fused_embed.py (:112-172, :236-280) in
+// compute dtype float32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // (gpudrive_lab_torch/cuda_build.py).  C interface, launched on the caller's
-// stream; the entry points (fused_embed_pool_bwd for float32,
-// fused_embed_pool_bwd_bf16 for the bf16 compute mode) return
-// cudaGetLastError() after their launches.
+// stream; fused_embed_pool_bwd returns cudaGetLastError() after its
+// launches.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -122,22 +110,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(s), "l"(src) : "memory");
-}
-
-// v rounded to the nearest bf16 (ties to even) in the bf16 mode, else v
-template <bool BF>
-__device__ __forceinline__ float rd(float v) {
-  if constexpr (BF) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-// one element of x as float32, from a bf16 value
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned>(u) << 16);
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -231,11 +203,10 @@ __device__ __forceinline__ void find_winners(Smem& sm, int r, RowIn in,
   if (lane == 0) sm.cnt[r] = n;
 }
 
-// FT: 8 or 16, the feature widths the loops over f are unrolled for;
-// BF: the bf16 compute mode; XT: x's stored type (float or __nv_bfloat16)
-template <int ACT, int FT, bool BF, typename XT>
+// FT: 8 or 16, the feature widths the loops over f are unrolled for
+template <int ACT, int FT>
 __global__ void __launch_bounds__(THREADS, 2)
-embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
+embed_pool_bwd_partial(const float* __restrict__ x, const float* __restrict__ w1,
                        const float* __restrict__ b1, const float* __restrict__ g,
                        const float* __restrict__ be, const float* __restrict__ w2,
                        const int* __restrict__ amax,
@@ -251,10 +222,10 @@ embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
   const int k1 = lane + 32;
 
   for (int i = tid; i < H * H; i += THREADS) {
-    sm.w2t[(i % H) * H + i / H] = rd<BF>(w2[i]);
+    sm.w2t[(i % H) * H + i / H] = w2[i];
   }
   for (int i = tid; i < FMAX * H; i += THREADS) {
-    sm.w1s[i] = i < F * H ? rd<BF>(w1[i]) : 0.0f;
+    sm.w1s[i] = i < F * H ? w1[i] : 0.0f;
   }
   const float b1a = b1[k0], b1b = b1[k1];
   const float ga = g[k0], gb = g[k1];
@@ -317,13 +288,9 @@ embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
         const int r = __popc(__ballot_sync(FULL, lane < R && incl <= n));
         const int e = sm.went[r][n - __shfl_sync(FULL, excl, r)];
         if (lane < F) {
-          const XT* src =
+          const float* src =
               x + (size_t)(base + r) * row_stride + (size_t)e * F + lane;
-          if constexpr (sizeof(XT) == 4) {
-            cp_async4(&sm.xs[n - c0][lane], src);
-          } else {
-            sm.xs[n - c0][lane] = load_f(src);
-          }
+          cp_async4(&sm.xs[n - c0][lane], src);
         }
       }
       cp_async_wait_all();
@@ -363,7 +330,7 @@ embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
               const float wa = sm.w1s[f * H + k0], wb = sm.w1s[f * H + k1];
 #pragma unroll
               for (int u = 0; u < G; ++u) {
-                const float xf = rd<BF>(component(xv[u], f - f4));
+                const float xf = component(xv[u], f - f4);
                 pa[u] += xf * wa;
                 pb[u] += xf * wb;
               }
@@ -396,15 +363,15 @@ embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
           const float lin0 = xh0[u] * ga + bea, lin1 = xh1[u] * gb + beb;
           const float t0 = activation<ACT>(lin0), t1 = activation<ACT>(lin1);
           if (ok[u]) {  // the dw2 product's operand
-            sm.ts[slot[u] * TS + k0] = rd<BF>(t0);
-            sm.ts[slot[u] * TS + k1] = rd<BF>(t1);
+            sm.ts[slot[u] * TS + k0] = t0;
+            sm.ts[slot[u] * TS + k1] = t1;
           }
           // dt[k] = sum over the units j this entity wins of
           // dpool[j] * w2[k, j]
           float dt0 = 0.0f, dt1 = 0.0f;
           for (unsigned long long m = mask[u]; m; m &= m - 1) {
             const int j = __ffsll((long long)m) - 1;
-            const float d = rd<BF>(sm.dps[r[u]][j]);
+            const float d = sm.dps[r[u]][j];
             dt0 += d * sm.w2t[j * H + k0];
             dt1 += d * sm.w2t[j * H + k1];
           }
@@ -427,7 +394,6 @@ embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
           const float dp1 = (dl1[u] * gb - m1 - xh1[u] * m2) * rstd[u];
           db1a += dp0;
           db1b += dp1;
-          const float dq0 = rd<BF>(dp0), dq1 = rd<BF>(dp1);
 #pragma unroll
           for (int f4 = 0; f4 < FT; f4 += 4) {
             const float4 xv =
@@ -435,9 +401,9 @@ embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
             for (int f = f4; f < f4 + 4; ++f) {
               if (f < F) {
-                const float xf = rd<BF>(component(xv, f - f4));
-                dw1a[f] += xf * dq0;
-                dw1b[f] += xf * dq1;
+                const float xf = component(xv, f - f4);
+                dw1a[f] += xf * dp0;
+                dw1b[f] += xf * dp1;
               }
             }
           }
@@ -452,10 +418,9 @@ embed_pool_bwd_partial(const XT* __restrict__ x, const float* __restrict__ w1,
         const int s = sm.start[r] + wr - c0;
         if (s < 0 || s >= c1 - c0) continue;
         const float d = sm.dps[r][jo];
-        const float dq = rd<BF>(d);
         const float* tr = sm.ts + s * TS + kq * KQ;
 #pragma unroll
-        for (int q = 0; q < KQ; ++q) dw2acc[q] += tr[q] * dq;
+        for (int q = 0; q < KQ; ++q) dw2acc[q] += tr[q] * d;
         if (kq == 0) db2acc += d;
       }
       __syncthreads();  // ts, xs and the tile's tables are rewritten next
@@ -522,11 +487,11 @@ sum_partials(const float* __restrict__ partial, float* __restrict__ out,
 
 // Blocks of one kernel instance that fit on an SM, with its shared-memory
 // opt-in, once.
-template <int ACT, int FT, bool BF, typename XT>
+template <int ACT, int FT>
 int blocks_per_sm() {
   static int nb = -1;
   if (nb < 0) {
-    auto kern = embed_pool_bwd_partial<ACT, FT, BF, XT>;
+    auto kern = embed_pool_bwd_partial<ACT, FT>;
     int n = 0;
     if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)sizeof(Smem)) != cudaSuccess ||
@@ -540,22 +505,18 @@ int blocks_per_sm() {
   return nb;
 }
 
-// the fewest of one mode's four instances (both activations, both FT)
-template <bool BF, typename XT>
+// the fewest of the four instances (both activations, both FT)
 int min_blocks_per_sm() {
-  const int n[4] = {blocks_per_sm<0, 8, BF, XT>(),
-                    blocks_per_sm<1, 8, BF, XT>(),
-                    blocks_per_sm<0, 16, BF, XT>(),
-                    blocks_per_sm<1, 16, BF, XT>()};
+  const int n[4] = {blocks_per_sm<0, 8>(), blocks_per_sm<1, 8>(),
+                    blocks_per_sm<0, 16>(), blocks_per_sm<1, 16>()};
   int m = n[0];
   for (int i = 1; i < 4; ++i) m = n[i] < m ? n[i] : m;
   return m;
 }
 
-template <bool BF, typename XT>
 int max_blocks(int B) {
   int dev = 0, sms = 0;
-  const int nb = min_blocks_per_sm<BF, XT>();
+  const int nb = min_blocks_per_sm();
   if (B < 1 || nb < 1 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess) {
@@ -565,25 +526,24 @@ int max_blocks(int B) {
   return nb * sms < tiles ? nb * sms : tiles;
 }
 
-template <bool BF, typename XT>
-int run(const XT* x, const float* w1, const float* b1, const float* g,
+int run(const float* x, const float* w1, const float* b1, const float* g,
         const float* be, const float* w2, const int* amax,
         const float* dpool, float* partial, float* out, int B, int E, int F,
         long long row_stride, int max_blocks, int act, void* stream) {
   if (F < 1 || F > FMAX || E < 1 || B < 1 || max_blocks < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  if (min_blocks_per_sm<BF, XT>() < 1) {
+  if (min_blocks_per_sm() < 1) {
     const cudaError_t err = cudaGetLastError();
     return err != cudaSuccess ? (int)err : (int)cudaErrorLaunchFailure;
   }
   const int rows = (B + max_blocks - 1) / max_blocks;
   const int nblocks = (B + rows - 1) / rows;
   const cudaStream_t s = (cudaStream_t)stream;
-  auto kern = act == 0 ? (F <= 8 ? embed_pool_bwd_partial<0, 8, BF, XT>
-                                 : embed_pool_bwd_partial<0, 16, BF, XT>)
-                       : (F <= 8 ? embed_pool_bwd_partial<1, 8, BF, XT>
-                                 : embed_pool_bwd_partial<1, 16, BF, XT>);
+  auto kern = act == 0 ? (F <= 8 ? embed_pool_bwd_partial<0, 8>
+                                 : embed_pool_bwd_partial<0, 16>)
+                       : (F <= 8 ? embed_pool_bwd_partial<1, 8>
+                                 : embed_pool_bwd_partial<1, 16>);
   kern<<<nblocks, THREADS, sizeof(Smem), s>>>(
       x, w1, b1, g, be, w2, amax, dpool, partial, B, E, F, row_stride, rows);
   cudaError_t err = cudaGetLastError();
@@ -598,15 +558,7 @@ int run(const XT* x, const float* w1, const float* b1, const float* g,
 // Upper bound on the partial blocks the backward uses for B rows: as many
 // as run on the card at once, and no more than one per R rows.  The caller
 // sizes the partial buffer [max_blocks, n_out] with it.  0 on an error.
-// float32 mode; fused_embed_pool_bwd_blocks_bf16 for the bf16 mode.
-extern "C" int fused_embed_pool_bwd_blocks(int B) {
-  return max_blocks<false, float>(B);
-}
-
-extern "C" int fused_embed_pool_bwd_blocks_bf16(int B, int x_bf16) {
-  return x_bf16 ? max_blocks<true, __nv_bfloat16>(B)
-                : max_blocks<true, float>(B);
-}
+extern "C" int fused_embed_pool_bwd_blocks(int B) { return max_blocks(B); }
 
 // float32: x float32, every product in float32
 extern "C" int fused_embed_pool_bwd(const float* x, const float* w1,
@@ -616,26 +568,6 @@ extern "C" int fused_embed_pool_bwd(const float* x, const float* w1,
                                     float* partial, float* out, int B, int E,
                                     int F, long long row_stride,
                                     int max_blocks, int act, void* stream) {
-  return run<false>(x, w1, b1, g, be, w2, amax, dpool, partial, out, B, E, F,
-                    row_stride, max_blocks, act, stream);
-}
-
-// the bf16 compute mode: x float32 (x_bf16 = 0) or bf16 (x_bf16 = 1), the
-// products' operands rounded to bf16; parameters and gradients float32
-extern "C" int fused_embed_pool_bwd_bf16(const void* x, const float* w1,
-                                         const float* b1, const float* g,
-                                         const float* be, const float* w2,
-                                         const int* amax, const float* dpool,
-                                         float* partial, float* out, int B,
-                                         int E, int F, long long row_stride,
-                                         int max_blocks, int x_bf16, int act,
-                                         void* stream) {
-  if (x_bf16) {
-    return run<true>(static_cast<const __nv_bfloat16*>(x), w1, b1, g, be, w2,
-                     amax, dpool, partial, out, B, E, F, row_stride,
-                     max_blocks, act, stream);
-  }
-  return run<true>(static_cast<const float*>(x), w1, b1, g, be, w2, amax,
-                   dpool, partial, out, B, E, F, row_stride, max_blocks, act,
-                   stream);
+  return run(x, w1, b1, g, be, w2, amax, dpool, partial, out, B, E, F,
+             row_stride, max_blocks, act, stream);
 }

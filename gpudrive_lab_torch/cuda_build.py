@@ -29,7 +29,9 @@ _COMMON = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 FLAGS = {
     "agent_road": ["--fmad=false"],
     "fused_embed": [],
+    "fused_embed_bf16": [],
     "fused_embed_bwd": [],
+    "fused_embed_bwd_bf16": [],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

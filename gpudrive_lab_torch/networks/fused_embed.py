@@ -11,8 +11,9 @@ gradients; d/dx is not computed (the observation is data).
 
 ``fused_embed_pool_fwd`` and ``fused_embed_pool_bwd`` are the wrappers: each
 checks its inputs, allocates the outputs, launches its kernel on a CUDA
-tensor (counting launches in ``.launches``, those of the bf16 compute mode
-also in ``.bf16_launches``) and uses its plain version
+tensor (K3 or K4 in float32, K3-bf16 or K4-bf16 in compute dtype bfloat16;
+counting launches in ``.launches``, those of the bf16 compute mode also in
+``.bf16_launches``) and uses its plain version
 (``reference_embed_pool_argmax``, ``reference_embed_pool_bwd``) only for CPU
 tensors.  ``fused_embed_pool`` puts the pair behind a
 ``torch.autograd.Function``.
@@ -44,13 +45,20 @@ layer 1's accumulators are layer 2's A operand), w1 and w2 sit in shared
 memory pre-split, x is read straight into the fragments at any alignment,
 and persistent blocks walk the rows, one row per warp.  The argmax tie
 rule is the smallest entity index (see the CUDA source); the same inputs
-give the same bits on every launch.  The bf16 mode takes one TF32 pass
-over operands rounded to bf16 (a bf16 value is exact in TF32, so the pass
-gives the bf16 products exactly) on the same fragment layout, with x read
-as stored (bf16 rows of 12 or 26 bytes at any 2-byte alignment); its bound
-is the bf16 products at the bf16 tensor-core rate (989 TFLOP/s, whatever
-unit runs them), the rest on the fp32 cores, against x at its stored
-width.
+give the same bits on every launch.
+
+Source note, K3-bf16 (``csrc/fused_embed_bf16.cu``, the bf16 compute mode).
+Both products on native bf16 wgmma m64n64k16 with f32 accumulators (A from
+registers, two bf16 to a register): layer 1 is one k16 step, and layer 1's
+accumulators, rounded and packed in pairs, are layer 2's A fragments as
+they stand.  Its bound is the bf16 products at 989 TFLOP/s beside the
+f32 rest on the fp32 cores, about equal, but the epilogue's instructions
+(exact tanhf alone is 16) set the pace on the card: three warpgroups an
+SM (110-115 registers a thread) interleave one's LayerNorm and tanhf with
+another's products, and x is staged in shared memory by cp.async, a ring
+of 3 chunks of 64 entities per warp (bf16 rows of 12 or 26 bytes at any
+2-byte alignment are copied as the enclosing 16-byte-aligned span).  Same
+tie rule, same bits on every launch.
 
 Source note, K4.  Replaces ``_bwd_kernel`` and ``_fused_bwd``
 (fused_embed.py:112-172, 236-280).  The Pallas kernel adds every grid step
@@ -67,11 +75,20 @@ by all warps at once, with three block barriers per tile.  The gradients
 equal the Pallas kernel's except on exact ties of the pooled maximum
 between different entities, which K3 gives to the smallest entity index
 (jnp.max splits them); ties between identical entity rows, such as the
-observation's padding rows, give the same gradients either way.  The bf16
-mode rounds the products' operands as the JAX kernel does (x, w1; t and
-dpool for dw2; dpool and w2 for dt; x and dpre for dw1) and runs them on
-the fp32 cores, where bf16 products are exact; its bound charges those
-products (``bwd_mma_flops``) at the bf16 tensor-core rate.
+observation's padding rows, give the same gradients either way.
+
+Source note, K4-bf16 (``csrc/fused_embed_bwd_bf16.cu``, the bf16 compute
+mode).  The operands of every product rounded as the JAX kernel rounds
+them (x, w1; dpool and w2 for dt; t and dpool for dw2; x and dpre for
+dw1), and the products on the tensor cores: each chunk of a tile's
+winners becomes dense matrices (Xw, their x; dY, dpool at the units each
+won), a warp runs 16 winners through layer 1 and dT = dY w2^T on
+mma.sync m16n8k16 bf16, the LayerNorm and activation backward in f32
+registers, and after a barrier dw2 += t^T dY and dw1 += Xw^T dpre run with
+the chunk's winners as the k dimension.  db1, dg, dbe and db2 stay f32
+sums of unrounded values; the deterministic two-kernel sum is K4's.  Its
+bound charges the products (``bwd_mma_flops``) at the bf16 tensor-core
+rate; the bytes of argmax and dpool bind it.
 """
 
 from __future__ import annotations
@@ -150,12 +167,13 @@ def _act(x, act: str):
 
 
 def _embed(x, w1, b1, g, be, w2, b2, act: str, cd=torch.float32):
-    """[..., F] -> [..., H]: Linear -> LayerNorm -> act -> Linear in f32,
-    with the JAX package's recipe (LN statistics as mean of squares of the
+    """[..., F] -> [..., H]: Linear -> LayerNorm -> act -> Linear in the
+    parameters' dtype (float32; float64 for a reference), with the JAX
+    package's recipe (LN statistics as mean of squares of the
     centred values, eps 1e-6); in compute dtype bfloat16 the products'
     operands are rounded to bf16 first."""
     r = _operand(cd)
-    pre = r(x.float()) @ r(w1) + b1
+    pre = r(x.to(w1.dtype)) @ r(w1) + b1
     mu = pre.mean(dim=-1, keepdim=True)
     var = ((pre - mu) * (pre - mu)).mean(dim=-1, keepdim=True)
     xh = (pre - mu) * torch.rsqrt(var + LN_EPS)
@@ -300,10 +318,12 @@ _SIGNATURES = {
     "fused_embed_pool_bwd_blocks_bf16": [_I, _I],
 }
 _ENTRIES = {
-    "fused_embed": ("fused_embed_pool_fwd", "fused_embed_pool_fwd_bf16"),
-    "fused_embed_bwd": ("fused_embed_pool_bwd", "fused_embed_pool_bwd_bf16",
-                        "fused_embed_pool_bwd_blocks",
-                        "fused_embed_pool_bwd_blocks_bf16"),
+    "fused_embed": ("fused_embed_pool_fwd",),
+    "fused_embed_bf16": ("fused_embed_pool_fwd_bf16",),
+    "fused_embed_bwd": ("fused_embed_pool_bwd",
+                        "fused_embed_pool_bwd_blocks"),
+    "fused_embed_bwd_bf16": ("fused_embed_pool_bwd_bf16",
+                             "fused_embed_pool_bwd_blocks_bf16"),
 }
 
 
@@ -384,7 +404,7 @@ def fused_embed_pool_fwd(x, w1, b1, g, be, w2, b2, act="tanh",
     amax = torch.empty((B, H), dtype=torch.int32, device=x.device)
     if B == 0:
         return out, amax
-    lib = _lib("fused_embed")
+    lib = _lib("fused_embed" if cd == torch.float32 else "fused_embed_bf16")
     args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(),
             be.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             amax.data_ptr(), B, E, Fi, x.stride(0))
@@ -430,7 +450,8 @@ def fused_embed_pool_bwd(x, w1, b1, g, be, w2, b2, argmax, dpool,
     n_out = Fi * H + H * H + 4 * H
     out = torch.zeros((n_out,), dtype=torch.float32, device=x.device)
     if B > 0:
-        lib = _lib("fused_embed_bwd")
+        lib = _lib("fused_embed_bwd" if cd == torch.float32
+                   else "fused_embed_bwd_bf16")
         x_bf16 = int(x.dtype == torch.bfloat16)
         # as many blocks as run at once; each writes one partial row
         nblocks = (lib.fused_embed_pool_bwd_blocks(B) if cd == torch.float32

@@ -4,9 +4,11 @@
 With no arguments it launches each kernel once at the small shapes of
 ``tests/test_torch_cuda.py`` (K2 [3,128,256] and [2,37,33]; K1 [2,64,3
 tiles of 256] with a random mask; K3 and K4 [37,127,6] and [64,200,13],
-tanh), waits for the card, and holds each result against its plain
-version (K1/K2 bitwise, K3 pooled within 1e-4, K4 each gradient within
-1e-4 of its largest value).  Then it does the same again with the caching
+tanh; K3-bf16 and K4-bf16 on the same x stored in float32, in bf16, and in
+bf16 at an odd 2-byte offset), waits for the card, and holds each result
+against its plain version (K1/K2 bitwise, K3 pooled within 1e-4, K4 each
+gradient within 1e-4 of its largest value, the bf16 modes at the bars of
+the card tests).  Then it does the same again with the caching
 allocator's free blocks filled with NaN before each launch, so that an
 output row the kernel never writes, or scratch it reads before writing,
 shows up as a difference.
@@ -114,7 +116,55 @@ def launch_all(poison: bool) -> list[str]:
             e = float((a_.cpu() - b_).abs().max())
             if not e <= 1e-4 * float(b_.abs().max()):
                 failed.append(f"K4 [{B},{E},{F}] d{name}: max abs err {e}")
+        for x_dtype in (torch.float32, torch.bfloat16):
+            failed += _bf16_modes(x.to(x_dtype), w, wd, dpool, fill)
+        # bf16 x at an odd 2-byte offset of its buffer
+        xo = torch.cat([torch.zeros(B, 1), x.reshape(B, -1)], 1)
+        xo = xo.to(torch.bfloat16)[:, 1:].unflatten(-1, (E, F))
+        failed += _bf16_modes(xo, w, wd, dpool, fill)
     torch.cuda.synchronize()
+    return failed
+
+
+def _bf16_modes(x, w, wd, dpool, fill) -> list[str]:
+    """K3-bf16 and K4-bf16 once each on x (float32 or bf16, as stored)
+    against their plain bf16 versions, at the bars of
+    tests/test_torch_cuda.py: the pooled output within 4 bf16 flips of t
+    and at most 1% of entries beyond 1e-5; dw1, dw2 within
+    BF16_PRODUCT_BAR of their terms' root-sum-square, the other gradients
+    within 1e-4 of their largest value."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    what = f"{list(x.shape)} {str(x.dtype)[6:]} x, offset {x.storage_offset()}"
+    failed = []
+    fill()
+    pooled, arg = fe.fused_embed_pool_fwd(x.to(dev), *wd, "tanh", bf)
+    want, _ = fe.reference_embed_pool_argmax(x, *w, "tanh", bf)
+    err = (pooled.cpu() - want).abs()
+    bar = 4 * fe.bf16_flip_bound("tanh", w[2], w[3], w[4])
+    loose = float((err > 1e-5).float().mean())
+    if not (float(err.max()) <= bar and loose <= 0.01):
+        failed.append(f"K3-bf16 {what}: pooled max abs err "
+                      f"{float(err.max())}, {loose} beyond 1e-5")
+    arg = arg.cpu()
+    fill()
+    grads = fe.fused_embed_pool_bwd(x.to(dev), *wd, arg.to(dev),
+                                    dpool.to(dev), "tanh", bf)
+    wants = fe.reference_embed_pool_bwd(x, *w, arg, dpool, "tanh", bf)
+    rss = fe.bwd_product_rss(x, *w, arg, dpool, "tanh", bf)
+    for name, a_, b_ in zip(("w1", "b1", "g", "be", "w2", "b2"), grads,
+                            wants):
+        if name in ("w1", "w2"):
+            e = fe.bf16_product_error(a_.cpu(), b_, rss[name == "w2"])
+            ok = e <= fe.BF16_PRODUCT_BAR
+        else:
+            e = float((a_.cpu() - b_).abs().max())
+            ok = e <= 1e-4 * float(b_.abs().max())
+        if not ok:
+            failed.append(f"K4-bf16 {what} d{name}: error {e}")
     return failed
 
 

@@ -358,11 +358,15 @@ def _check_k3_bf16(x_dev, x, w, act):
 
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,E,F", [(37, 127, 6), (64, 200, 13), (20, 1, 6),
-                                   (33, 17, 13), (4416, 200, 13)])
+                                   (33, 17, 13), (4416, 200, 13), (1, 1, 6),
+                                   (5, 200, 13)])
 @pytest.mark.parametrize("act", ["tanh", "gelu"])
 def test_fused_embed_bf16_kernel_matches_plain(dev, B, E, F, act, x_dtype):
     """K3's bf16 compute mode against its plain version, x stored in
-    float32 or bf16, ragged E and the PPO rollout's 4,416 rows included."""
+    float32 or bf16, ragged E and the PPO rollout's 4,416 rows included.
+    B = 1 and B = 5 leave warps of a block's last group of 4 rows without a
+    row; E = 1 and E = 200 give a block an odd number of tiles, so its
+    two-tile pipeline ends on a tile of no row."""
     g = torch.Generator().manual_seed(B + E + 1)
     x = torch.randn(B, E, F, generator=g).to(getattr(torch, x_dtype))
     _check_k3_bf16(x.to(dev), x, _embed_params(g, F), act)
@@ -388,7 +392,7 @@ def test_fused_embed_bf16_kernel_reads_bf16_rows_in_place(dev):
 
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,E,F", [(37, 127, 6), (64, 200, 13), (1000, 23, 13),
-                                   (20, 1, 6), (4416, 200, 13)])
+                                   (20, 1, 6), (4416, 200, 13), (5, 200, 13)])
 @pytest.mark.parametrize("act", ["tanh", "gelu"])
 def test_fused_embed_bwd_bf16_kernel_matches_plain(dev, B, E, F, act,
                                                    x_dtype):
@@ -432,6 +436,41 @@ def test_fused_embed_bwd_bf16_kernel_matches_plain(dev, B, E, F, act,
         else:
             assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(
                 c.abs().max()), name
+
+
+def test_fused_embed_bwd_bf16_kernel_reads_bf16_rows_in_place(dev):
+    """K4's bf16 mode on the partner and road blocks read in place from
+    [B, 3368] bf16 observation rows (road entities at odd 2-byte offsets)
+    and on a block starting one element off: the same bits as on
+    contiguous copies, and the plain version's gradients at the bars of
+    the test above."""
+    bf = torch.bfloat16
+    B = 300
+    g = torch.Generator().manual_seed(13)
+    obs = torch.randn(B, 3370, generator=g).to(bf)
+    dpool = torch.randn(B, 64, generator=g)
+    for lo, E, F in ((6, 127, 6), (768, 200, 13), (769, 200, 13)):
+        w = _embed_params(g, F)
+        wd = [t.to(dev) for t in w]
+        view = obs.to(dev)[:, lo:lo + E * F].unflatten(-1, (E, F))
+        x = obs[:, lo:lo + E * F].unflatten(-1, (E, F)).contiguous()
+        _, arg = fe.fused_embed_pool_fwd(view, *wd, "tanh", bf)
+        got = fe.fused_embed_pool_bwd(view, *wd, arg, dpool.to(dev), "tanh",
+                                      bf)
+        copy = fe.fused_embed_pool_bwd(x.to(dev), *wd, arg, dpool.to(dev),
+                                       "tanh", bf)
+        want = fe.reference_embed_pool_bwd(x, *w, arg.cpu(), dpool, "tanh",
+                                           bf)
+        rss = fe.bwd_product_rss(x, *w, arg.cpu(), dpool, "tanh", bf)
+        for name, a, b, c in zip(("w1", "b1", "g", "be", "w2", "b2"), got,
+                                 copy, want):
+            assert torch.equal(a, b), (lo, name)
+            if name in ("w1", "w2"):
+                assert fe.bf16_product_error(a.cpu(), c, rss[name == "w2"]) \
+                    <= fe.BF16_PRODUCT_BAR, (lo, name)
+            else:
+                assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(
+                    c.abs().max()), (lo, name)
 
 
 def test_fused_embed_autograd_on_card(dev):

@@ -11,11 +11,12 @@ pooled max abs error <= 1e-4, and the argmax equal wherever the top two
 values differ by more than 1e-5.  One TF32 pass breaks the argmax bar,
 which is why K3 takes three.
 
-K3's bf16 compute mode takes route (a): one TF32 pass over operands rounded
-to bf16.  The last tests check, with the same emulation, that bf16 values
-are fixed points of the TF32 rounding and that one emulated TF32 pass over
-bf16-rounded operands gives the plain bf16 version's bits on the same real
-observations.
+K3's bf16 compute mode (K3-bf16, csrc/fused_embed_bf16.cu) runs native bf16
+wgmma; one TF32 pass over operands rounded to bf16 is the other exact route
+to the same products.  The last tests check, with the same emulation, that
+bf16 values are fixed points of the TF32 rounding and that one emulated
+TF32 pass over bf16-rounded operands gives the plain bf16 version's bits
+on the same real observations.
 """
 
 import os
@@ -115,8 +116,8 @@ def test_one_tf32_pass_breaks_the_argmax_bar(blocks, name):
 
 
 def embed_tf32_over_bf16(x, w1, b1, g, be, w2, b2):
-    """Route (a) of K3's bf16 mode: the operands of both products rounded
-    to bf16, then one emulated TF32 pass, the rest in fp32."""
+    """The bf16 mode by one TF32 pass: the operands of both products
+    rounded to bf16, then one emulated TF32 pass, the rest in fp32."""
     r = fe.round_bf16
     pre = product(r(x.float()), r(w1), b1, passes=1)
     mu = pre.mean(dim=-1, keepdim=True)
