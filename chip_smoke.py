@@ -19,7 +19,13 @@ synthetic large map (10,240 roads, scene/large_map.py; phase 4), runs the
 sensors (lidar, BEV and camera on
 every step of a policy rollout over the same 512 worlds, then each sensor
 against the same port function on the CPU for the first 4 worlds: the
-sensor phase), checks the outputs, and prints:
+sensor phase), then the dataset phase (the PPO CLI on 512-world batches
+drawn from data/pool_v3 with a swap before every iteration, swap timings
+cold, warm and behind PrefetchingSceneLoader, VecGPUDriveEnv with a
+resample, evaluate_policy and multi_policy_rollout with a PolicyActor from
+the CLI's checkpoint, and IPPO over SB3MultiAgentEnv with a resample; K2,
+K3 and K4 held against their plain versions after a swap), checks the
+outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -39,7 +45,7 @@ sensor phase), checks the outputs, and prints:
     bound_by, library_ms; for K1 and K2 also wrapper_ms and their
     large-map reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
-    rollout);
+    rollout; for every kernel its launches in the dataset phase);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -129,6 +135,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def road_inputs(env):
+    """K2's inputs at the env's state: the active agents' boxes and the
+    road segments."""
+    from gpudrive_lab_torch.core import collision
+    from gpudrive_lab_torch.core import step as stepmod
+
+    s, scene = env.state, env.scene
+    active = ~collision._skip_mask(scene, s, stepmod.current_step_index(s))
+    feat = collision.agent_features(
+        scene, s, active, collision.agent_half_extents(scene))
+    return feat, collision.road_features_t(scene)
+
+
 def k2_bound(kernels, agents, roads_t):
     """K2's bound (ms, what sets it, operations): each input read once and
     the output written once, or the live pairs' SAT operations (each
@@ -163,6 +182,58 @@ def twice(fn, what: str):
     first, second = fn(), fn()
     check(torch.equal(first, second), f"{what}: two launches differ")
     return first
+
+
+def k3_check(x, w, what: str) -> float:
+    """K3 on ``x`` against its plain version (the max over the plain
+    activations, as reference_embed_pool_argmax takes it): pooled max abs
+    error <= 1e-4, the argmax equal where the top two differ by more than
+    1e-5, two launches bitwise equal.  Returns the max abs error."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    pooled, arg = fe.fused_embed_pool_fwd(x, *w, "tanh")
+    again, arg2 = fe.fused_embed_pool_fwd(x, *w, "tanh")
+    check(torch.equal(pooled, again) and torch.equal(arg, arg2),
+          f"{what}: two launches differ")
+    y = fe._embed(x, *w, "tanh")  # [B, E, 64] plain activations
+    want, _ = y.max(dim=1)
+    top2 = y.topk(2, dim=1)
+    clear = (top2.values[:, 0] - top2.values[:, 1]) > 1e-5
+    err = float((pooled - want).abs().max())
+    arg_ok = torch.equal(arg.long()[clear], top2.indices[:, 0][clear])
+    del y, top2
+    check(err <= 1e-4, f"{what}: pooled max abs err {err}")
+    check(arg_ok, f"{what}: argmax differs where the top two differ by "
+          f"more than 1e-5")
+    print(f"{what} {list(x.shape)}: max abs err {err:.3g}, argmax equal on "
+          f"{int(clear.sum())}/{clear.numel()} clear units, two launches "
+          f"bitwise equal")
+    return err
+
+
+def k4_grad_check(x, w, arg, dpool, what: str) -> tuple[float, float]:
+    """K4 on ``x`` against its plain version: each gradient's max abs
+    error <= 1e-4 of its largest value, two launches bitwise equal.
+    Returns (max abs error, that error over the gradient's largest)."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    got = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh")
+    again = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh")
+    want = fe.reference_embed_pool_bwd(x, *w, arg, dpool, "tanh")
+    err, rel = 0.0, 0.0
+    for gname, a, b, c in zip(("dw1", "db1", "dg", "dbe", "dw2", "db2"),
+                              got, again, want):
+        check(torch.equal(a, b), f"{what} {gname}: two launches differ")
+        e = float((a - c).abs().max())
+        err = max(err, e)
+        rel = max(rel, e / max(float(c.abs().max()), 1e-30))
+    check(rel <= 1e-4, f"{what}: max abs err {rel:.3g} of the gradient's "
+          f"max abs value")
+    return err, rel
 
 
 def k3_bf16_check(x, w, what: str) -> float:
@@ -363,12 +434,6 @@ def k4_check(ppo, env, traj, gen) -> tuple[dict, float]:
             env.params, env.spec, env.reward_weights, cidx)[0]
         for t in range(cfg.rollout_len // cfg.num_minibatches)
     ]).reshape(-1, 3368)
-    policy = ppo.policy
-    blocks = {
-        "partner": (policy.partner_embed,
-                    obs[:, 6:768].unflatten(-1, (127, 6))),
-        "road": (policy.road_map_embed, obs[:, 768:].unflatten(-1, (200, 13))),
-    }
     k4 = dict(name="K4 fused_embed_pool_bwd", route="cuda",
               source="gpudrive_lab_torch/csrc/fused_embed_bwd.cu",
               replaces="gpudrive_lab_tpu/networks/fused_embed.py:251",
@@ -379,26 +444,10 @@ def k4_check(ppo, env, traj, gen) -> tuple[dict, float]:
     worst_bound = {}
     bf16_err = 0.0
     with torch.no_grad():
-        for bname, (emb, x) in blocks.items():
-            lin1, ln, _, _, lin2 = emb
-            w = (lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
-                 lin2.weight.t().contiguous(), lin2.bias)
+        for bname, w, x in embed_blocks(ppo.policy, obs):
             _, arg = fe.fused_embed_pool_fwd(x, *w, "tanh")
             dpool = torch.randn(arg.shape, generator=gen, device=x.device)
-            got = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh")
-            again = fe.fused_embed_pool_bwd(x, *w, arg, dpool, "tanh")
-            want = fe.reference_embed_pool_bwd(x, *w, arg, dpool, "tanh")
-            err, rel = 0.0, 0.0
-            for gname, a, b, c in zip(("dw1", "db1", "dg", "dbe", "dw2",
-                                       "db2"), got, again, want):
-                check(torch.equal(a, b), f"K4 {bname} {gname}: two launches "
-                      f"differ")
-                e = float((a - c).abs().max())
-                err = max(err, e)
-                rel = max(rel, e / max(float(c.abs().max()), 1e-30))
-            del want
-            check(rel <= 1e-4, f"K4 {bname}: max abs err {rel:.3g} of the "
-                  f"gradient's max abs value")
+            err, rel = k4_grad_check(x, w, arg, dpool, f"K4 {bname}")
             _, barg = fe.fused_embed_pool_fwd(x, *w, "tanh", torch.bfloat16)
             bf16_err = max(bf16_err, k4_bf16_check(
                 x, w, barg, dpool, f"{bname} minibatch, float32 x")[0])
@@ -898,6 +947,436 @@ def sensor_phase(env, policy, gen) -> dict:
     return {"K2": n2, "K3": n3}
 
 
+# the dataset phase: PPO CLI iterations, swaps and the other steps
+DATASET_WORLDS = 512  # worlds per batch
+DATASET_STEPS = 100  # vec env steps, past the 91-step episode
+DATASET_SWAP_AT = 95  # the vec env's resample, after the first episodes
+PREFETCH_STEPS = 5  # rollout steps that overlap a prefetch
+
+
+def counts() -> dict:
+    """Every kernel's launch count."""
+    from gpudrive_lab_torch.core import kernels
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    return {"K1": kernels.agent_road_hits_tiled.launches,
+            "K2": kernels.agent_road_hits_dense.launches,
+            "K3": fe.fused_embed_pool_fwd.launches,
+            "K4": fe.fused_embed_pool_bwd.launches,
+            "K3-bf16": fe.fused_embed_pool_fwd.bf16_launches,
+            "K4-bf16": fe.fused_embed_pool_bwd.bf16_launches}
+
+
+def set_counts(c: dict) -> None:
+    from gpudrive_lab_torch.core import kernels
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    kernels.agent_road_hits_tiled.launches = c["K1"]
+    kernels.agent_road_hits_dense.launches = c["K2"]
+    fe.fused_embed_pool_fwd.launches = c["K3"]
+    fe.fused_embed_pool_bwd.launches = c["K4"]
+    fe.fused_embed_pool_fwd.bf16_launches = c["K3-bf16"]
+    fe.fused_embed_pool_bwd.bf16_launches = c["K4-bf16"]
+
+
+def uncounted(fn):
+    """fn's result, its kernel launches (checks against the plain
+    versions) left out of the counts."""
+    before = counts()
+    try:
+        return fn()
+    finally:
+        set_counts(before)
+
+
+def embed_blocks(policy, rows):
+    """(name, K3/K4 weights, x) of the partner and road blocks of the
+    flat observation rows [N, 3368]."""
+    out = []
+    for bname, emb, x in (
+            ("partner", policy.partner_embed,
+             rows[:, 6:768].unflatten(-1, (127, 6))),
+            ("road", policy.road_map_embed,
+             rows[:, 768:].unflatten(-1, (200, 13)))):
+        lin1, ln, _, _, lin2 = emb
+        out.append((bname, (lin1.weight.t().contiguous(), lin1.bias,
+                            ln.weight, ln.bias, lin2.weight.t().contiguous(),
+                            lin2.bias), x))
+    return out
+
+
+def k3_against_plain(policy, rows, what: str) -> float:
+    """K3 on the partner and road slices of ``rows`` against its plain
+    version at phase 2's bars; returns the max abs error."""
+    import torch
+
+    with torch.no_grad():
+        return max(k3_check(x, w, f"[dataset] K3 {what}, {bname}")
+                   for bname, w, x in embed_blocks(policy, rows))
+
+
+def k2_against_plain(env, what: str) -> None:
+    import torch
+
+    from gpudrive_lab_torch.core import kernels
+
+    feat, roads_t = road_inputs(env)
+    got = twice(lambda: kernels.agent_road_hits_dense(feat, roads_t),
+                f"K2 {what}")
+    want = kernels.agent_road_hits_dense_plain(feat, roads_t)
+    check(torch.equal(got, want), f"K2 {what}: differs from its plain "
+          f"version at {int((got != want).sum())} agents")
+    print(f"[dataset] K2 {what}: bitwise equal to plain, two launches equal, "
+          f"{int(got.sum())} agents hit")
+
+
+class PhaseTimer:
+    """CUDA events around the PPO trainer's rollout, GAE (prepare) and
+    update (learn) calls while it is installed, for the CLI's iterations."""
+
+    PHASES = (("rollout", "rollout"), ("gae", "prepare"), ("update", "learn"))
+
+    def __init__(self):
+        self.marks = []
+
+    def __enter__(self):
+        import torch
+
+        from gpudrive_lab_torch.ppo.ppo import PPO
+
+        self.saved = {m: getattr(PPO, m) for _, m in self.PHASES}
+        for name, m in self.PHASES:
+            def timed(*a, _f=self.saved[m], _n=name, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _f(*a, **k)
+                end.record()
+                self.marks.append((_n, start, end))
+                return out
+            setattr(PPO, m, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from gpudrive_lab_torch.ppo.ppo import PPO
+
+        for m, f in self.saved.items():
+            setattr(PPO, m, f)
+
+    def iterations(self) -> list:
+        """[{rollout, gae, update} ms] per iteration."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = []
+        for name, a, b in self.marks:
+            if name == "rollout":
+                out.append({})
+            out[-1][name] = a.elapsed_time(b)
+        return out
+
+
+def dataset_phase(root: str, dev, gen) -> dict:
+    """The dataset-driven path at full width: 512 worlds drawn with
+    replacement from the 512 pool_v3 scenes, 128 agent rows, the default
+    policy widths with fused_embed.  (1) the PPO CLI in process, a swap
+    before every iteration after the first, with each iteration's rollout,
+    GAE and update ms, samples/s and the swap count; one swap cold and one
+    warm, and a swap behind PrefetchingSceneLoader against a plain one;
+    (2) VecGPUDriveEnv for DATASET_STEPS steps with the fused policy and one
+    resample, K2 and K3 held against their plain versions on the first step
+    after it; (3) evaluate_policy over 2 batches with a PolicyActor loaded
+    from the CLI's policy.pt, and multi_policy_rollout with that actor and a
+    RandomActor; (4) IPPO over SB3MultiAgentEnv, one learn call with one
+    resample, K4 held against its plain version on a minibatch after it.
+    The launch counts are set to 0 at the start; the checks' launches are
+    left out.  Returns {kernel: launches, ...} and the phase's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gpudrive_lab_torch.agents import PolicyActor, RandomActor
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.dataset import SceneDataLoader
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.env.env_vec import VecGPUDriveEnv
+    from gpudrive_lab_torch.env.wrappers.sb3_learner import IPPO, IPPOConfig
+    from gpudrive_lab_torch.env.wrappers.sb3_wrapper import SB3MultiAgentEnv
+    from gpudrive_lab_torch.networks.late_fusion import (
+        PolicyConfig,
+        sample_logits,
+    )
+    from gpudrive_lab_torch.ppo import train
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG, rollout, slice_policy
+    from gpudrive_lab_torch.scene.compiler import compile_world
+    from gpudrive_lab_torch.scene.loader import load_map
+    from gpudrive_lab_torch.scene.prefetch import PrefetchingSceneLoader
+    from gpudrive_lab_torch.utils.evaluation import evaluate_policy
+    from gpudrive_lab_torch.utils.multi_policy_rollout import (
+        multi_policy_rollout,
+    )
+
+    pool = os.path.join(root, "data", "pool_v3")
+    W, seed = DATASET_WORLDS, 42
+
+    def loader(s=seed):
+        return SceneDataLoader(pool, W, 1000, sample_with_replacement=True,
+                               seed=s)
+
+    # --compact: the most controlled agents of the first 8 batches the
+    # CLI's loader draws (seed 42), rounded up to 64; check_compact_capacity
+    # refuses a run that reaches a batch where it falls short.  With a swap
+    # before every iteration after the first (--resample-interval 1),
+    # --total-timesteps one above the most samples the first 3 batches can
+    # give (controlled agents x 32 steps) runs at least 4 iterations.
+    cli_cfg = EnvConfig(
+        reward_type="weighted_combination", collision_weight=-0.75,
+        off_road_weight=-0.75, goal_achieved_weight=1.0,
+        dynamics_model="classic", collision_behavior="ignore")
+    params = cli_cfg.sim_params()
+    it = iter(loader())
+    totals = [sum(int(compile_world(p, params, frozenset()).agent[
+        "controlled"].sum()) for p in next(it)) for _ in range(8)]
+    compact = -(-max(totals) // 64) * 64
+    timesteps = 32 * sum(totals[:3]) + 1
+    print(f"[dataset] controlled agents of the CLI's first 8 batches "
+          f"(seed {seed}): {totals}; --compact {compact}, --total-timesteps "
+          f"{timesteps}")
+
+    set_counts(dict.fromkeys(counts(), 0))
+    results = {}
+    # ---- (1) the PPO CLI ---------------------------------------------------
+    with tempfile.TemporaryDirectory() as ckpt, PhaseTimer() as timer:
+        argv = ["--device", dev.type, "--data-dir", pool, "--num-worlds",
+                str(W), "--fused-embed", "--compact", str(compact),
+                "--compact-mode", "flat", "--rollout-len", "32",
+                "--update-epochs", "4", "--num-minibatches", "4",
+                "--resample-interval", "1",
+                "--total-timesteps", str(timesteps),
+                "--log-interval", "1", "--checkpoint-path", ckpt]
+        print(f"[dataset] ppo.train.main {' '.join(argv[:-1])} <tmp>")
+        t0 = time.time()
+        train.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        with open(os.path.join(ckpt, "ppo.metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f]
+        ckpt_state = torch.load(os.path.join(ckpt, train.CHECKPOINT),
+                                map_location="cpu")
+    iters = timer.iterations()
+    check(len(iters) == len(logs) >= 4, f"the CLI ran {len(iters)} "
+          f"iterations ({len(logs)} logged), expected at least 4")
+    check(logs[-1]["resamples"] == len(logs) - 1 >= 3, f"the CLI swapped "
+          f"{logs[-1]['resamples']} times in {len(logs)} iterations")
+    prev, rates = 0, []
+    for rec, ph in zip(logs, iters):
+        samples = rec["global_step"] - prev
+        prev = rec["global_step"]
+        ms = sum(ph.values())
+        rates.append(samples / ms * 1e3)
+        check(all(np.isfinite(rec[k]) for k in ("pg_loss", "v_loss",
+                                                 "entropy")),
+              f"iteration {rec['iteration']}: a loss is not finite")
+        print(f"[dataset] iteration {rec['iteration']}: rollout "
+              f"{ph['rollout']:.3f} ms, gae {ph['gae']:.3f} ms, update "
+              f"{ph['update']:.3f} ms (CUDA events); {samples} samples, "
+              f"train samples/s {rates[-1]:.1f}; resamples "
+              f"{rec['resamples']}, resample_time_s {rec['resample_time_s']}")
+    cli = counts()
+    results["cli"] = dict(iterations=len(iters), resamples=logs[-1]
+                          ["resamples"], rates=rates, compact=compact,
+                          wall_s=cli_s, launches=cli)
+    print(f"[dataset] CLI: {len(iters)} iterations, {logs[-1]['resamples']} "
+          f"swaps, {cli_s:.2f} s wall (env build included); mean train "
+          f"samples/s {sum(rates) / len(rates):.1f}; launches so far "
+          f"{cli}")
+
+    # ---- swap timings ------------------------------------------------------
+    env = GPUDriveTorchEnv(cli_cfg, data_loader=loader(seed + 1), device=dev)
+    policy = slice_policy(device=dev, seed=SEED)
+
+    def timed_swap(batch=None) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env.swap_data_batch(batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def clear_caches():
+        """Forget every compiled world and parsed JSON file."""
+        compile_world.cache_clear()
+        load_map.cache_clear()
+
+    batch = next(iter(loader(seed + 2)))
+    clear_caches()
+    cold = timed_swap(batch)  # parse and compile every world
+    compile_world.cache_clear()
+    cold_compile = timed_swap(batch)  # compile every world, files parsed
+    warm = timed_swap(batch)
+    gen_local = torch.Generator(device=dev).manual_seed(SEED)
+    # the same batch behind the same PREFETCH_STEPS rollout steps, both
+    # caches cleared before each: a plain swap after the steps, and a swap
+    # of the batch a PrefetchingSceneLoader compiled during them
+    clear_caches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rollout(env, policy, PREFETCH_STEPS, gen_local)
+    torch.cuda.synchronize()
+    steps_plain = time.perf_counter() - t0
+    plain_swap = timed_swap(batch)
+    clear_caches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pf = PrefetchingSceneLoader(loader(seed + 2), env.params)
+    try:
+        rollout(env, policy, PREFETCH_STEPS, gen_local)
+        torch.cuda.synchronize()
+        steps_pf = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        paths = pf.next_batch()
+        wait = time.perf_counter() - t1
+    finally:
+        pf.close()
+    check(paths == batch, "the prefetched batch is not the loader's first")
+    pf_swap = timed_swap(paths)
+    swaps = dict(cold_s=cold, cold_compile_s=cold_compile, warm_s=warm,
+                 plain_steps_s=steps_plain, plain_swap_s=plain_swap,
+                 prefetch_steps_s=steps_pf, prefetch_wait_s=wait,
+                 prefetch_swap_s=pf_swap)
+    results["swaps"] = swaps
+    print(f"[dataset] swap of {W} worlds ({len(set(batch))} distinct "
+          f"scenes): cold {cold:.3f} s (files parsed and compiled), "
+          f"{cold_compile:.3f} s (compile_world's cache cleared, files "
+          f"parsed), warm {warm:.3f} s; {PREFETCH_STEPS} rollout steps then "
+          f"a plain cold swap {steps_plain:.3f} + {plain_swap:.3f} = "
+          f"{steps_plain + plain_swap:.3f} s; the same steps while "
+          f"PrefetchingSceneLoader compiles {steps_pf:.3f} + wait "
+          f"{wait:.3f} + swap {pf_swap:.3f} = {steps_pf + wait + pf_swap:.3f}"
+          f" s")
+    del env
+
+    # ---- (2) VecGPUDriveEnv --------------------------------------------------
+    venv = VecGPUDriveEnv(EnvConfig(**SLICE_CONFIG), loader(seed + 3),
+                          device=dev)
+    obs = venv.reset()
+    stats = []
+    with torch.no_grad():
+        for t in range(DATASET_STEPS):
+            if t == DATASET_SWAP_AT:
+                venv.resample_scenario_batch()
+                obs = venv.reset()
+                uncounted(lambda: k2_against_plain(
+                    venv.env, "vec env, first state after the swap"))
+                results["K3_err"] = uncounted(lambda: k3_against_plain(
+                    policy, obs, "vec env, first step after the swap"))
+            logits, _ = policy(obs)
+            action, _, _ = sample_logits(gen, logits)
+            obs, rew, term, trunc, info = venv.step(action)
+            stats += info["episode_stats"]
+    check(bool(torch.isfinite(rew).all()) and obs.shape == (
+        venv.num_agents, 3368), "vec env: bad rewards or obs")
+    check(len(stats) >= W // 2, f"vec env: {len(stats)} episode records")
+    mean = {k: sum(s[k] for s in stats) / len(stats) for k in (
+        "perc_goal_achieved", "perc_veh_collisions", "perc_off_road",
+        "perc_truncated")}
+    results["vec"] = dict(episodes=len(stats), coverage=len(
+        venv.data_coverage), **mean)
+    print(f"[dataset] vec env: {DATASET_STEPS} steps, resample at step "
+          f"{DATASET_SWAP_AT}, {len(stats)} episode records ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in mean.items())
+          + f"), {len(venv.data_coverage)} scenes covered, "
+          f"{venv.num_agents} agents after the swap")
+    del venv, obs
+
+    # ---- (3) evaluation ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, train.CHECKPOINT)
+        torch.save(ckpt_state, path)
+        actor = PolicyActor(None, checkpoint_path=path,
+                            policy_config=PolicyConfig(fused_embed=True),
+                            deterministic=True, device=dev)
+    eenv = GPUDriveTorchEnv(cli_cfg, data_loader=loader(seed + 4),
+                            device=dev)
+    t0 = time.time()
+    ev = evaluate_policy(eenv, actor.policy, num_batches=2)
+    torch.cuda.synchronize()
+    ev_s = time.time() - t0
+    check(len(ev["per_scene"]) == 2 * W, "evaluation: per-scene records")
+    check(all(0.0 <= ev[k] <= 1.0 for k in ("goal_achieved", "collided",
+                                             "off_road")),
+          f"evaluation rates out of range: {ev}")
+    ctrl = eenv.cont_agent_mask
+    flat = torch.nonzero(ctrl.reshape(-1))[:, 0]
+    half = torch.zeros(ctrl.numel(), dtype=torch.bool, device=dev)
+    half[flat[::2]] = True
+    half = half.reshape(ctrl.shape)
+    masks = {"policy": half & ctrl, "random": ~half & ctrl}
+    mp = multi_policy_rollout(
+        eenv, {"policy": actor, "random": RandomActor(
+            None, eenv.action_space_n, seed=SEED)}, masks)
+    results["eval"] = dict(ev={k: ev[k] for k in ("goal_achieved",
+                                                  "collided", "off_road")},
+                           seconds=ev_s, multi=mp)
+    print(f"[dataset] evaluate_policy, 2 batches of {W} worlds with a swap, "
+          f"the CLI's policy.pt (argmax): goal {ev['goal_achieved']:.4f}, "
+          f"collided {ev['collided']:.4f}, off-road {ev['off_road']:.4f}; "
+          f"{ev_s:.2f} s")
+    print(f"[dataset] multi_policy_rollout, PolicyActor and RandomActor on "
+          f"halves of the controlled agents: {mp}")
+    del eenv
+
+    # ---- (4) IPPO ------------------------------------------------------------
+    senv = SB3MultiAgentEnv(cli_cfg, loader(seed + 5), device=dev)
+    icfg = IPPOConfig(n_steps=16, n_epochs=1, batch_size=8192,
+                      resample_freq=1)
+    ippo = IPPO(senv, icfg, PolicyConfig(fused_embed=True), seed=SEED)
+    n0 = senv.num_envs
+    t0 = time.time()
+    hist = ippo.learn(total_timesteps=n0 * icfg.n_steps + 1)
+    torch.cuda.synchronize()
+    ippo_s = time.time() - t0
+    check(len(hist) == 2, f"IPPO: {len(hist)} rollouts, expected 2")
+    check(all(np.isfinite(v) for m in hist for v in m.values()),
+          f"IPPO: a metric is not finite: {hist}")
+    mb = next(ippo.buffer.get(icfg.batch_size, np.random.default_rng(0)))
+    k4 = uncounted(lambda: k4_against_plain(ippo.policy, mb["obs"], gen))
+    results["ippo"] = dict(rollouts=hist, seconds=ippo_s, agents=(
+        n0, senv.num_envs), K4_err=k4)
+    print(f"[dataset] IPPO: {len(hist)} rollouts of {icfg.n_steps} steps, "
+          f"{n0} then {senv.num_envs} agents (one resample), {ippo_s:.2f} s; "
+          + "; ".join(", ".join(f"{k} {v:.5g}" for k, v in m.items())
+                      for m in hist))
+    del senv, ippo, mb
+
+    results["launches"] = counts()
+    print(f"[dataset] launches in the phase: {results['launches']}")
+    for k in ("K2", "K3", "K4"):
+        check(results["launches"][k] > 0, f"the dataset phase did not "
+              f"launch {k}")
+    return results
+
+
+def k4_against_plain(policy, obs, gen) -> float:
+    """K4 on a minibatch's partner and road slices against its plain
+    version at phase 5's bar; returns the max abs error."""
+    import torch
+
+    from gpudrive_lab_torch.networks import fused_embed as fe
+
+    err = 0.0
+    with torch.no_grad():
+        for bname, w, x in embed_blocks(policy, obs):
+            _, arg = fe.fused_embed_pool_fwd(x, *w, "tanh")
+            dpool = torch.randn(arg.shape, generator=gen, device=x.device)
+            e, rel = k4_grad_check(x, w, arg, dpool, f"K4 IPPO {bname}")
+            err = max(err, e)
+            print(f"[dataset] K4 IPPO minibatch after the resample, {bname} "
+                  f"{list(x.shape)}: {rel:.3g} of the largest gradient, two "
+                  f"launches bitwise equal")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -927,7 +1406,6 @@ def main() -> int:
 
     from gpudrive_lab_torch import cuda_build
     from gpudrive_lab_torch.core import collision, kernels
-    from gpudrive_lab_torch.core import step as stepmod
     from gpudrive_lab_torch.networks import fused_embed as fe
     from gpudrive_lab_torch.utils.profiling import kernel_time_ms
 
@@ -968,14 +1446,6 @@ def main() -> int:
     check(env.scene.rtiles is None, "the R=256 slice must take the dense path")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def road_inputs(e):
-        s, scene = e.state, e.scene
-        cur = stepmod.current_step_index(s)
-        active = ~collision._skip_mask(scene, s, cur)
-        feat = collision.agent_features(
-            scene, s, active, collision.agent_half_extents(scene))
-        return feat, collision.road_features_t(scene)
-
     results = {}
     k2 = dict(name="K2 agent_road_hits_dense", route="cuda",
               source="gpudrive_lab_torch/csrc/agent_road.cu",
@@ -1015,13 +1485,6 @@ def main() -> int:
     check(tuple(obs.shape) == (W, A, 3368), f"obs shape {tuple(obs.shape)}")
     check(bool(torch.isfinite(obs).all()), "obs not finite")
     flat = obs.reshape(W * A, -1)
-    E0, P = 6, 127 * 6
-    blocks = {
-        "partner": (policy.partner_embed,
-                    flat[:, E0:E0 + P].unflatten(-1, (127, 6))),
-        "road": (policy.road_map_embed,
-                 flat[:, E0 + P:].unflatten(-1, (200, 13))),
-    }
     k3 = dict(name="K3 fused_embed_pool_fwd", route="cuda",
               source="gpudrive_lab_torch/csrc/fused_embed.cu",
               replaces="gpudrive_lab_tpu/networks/fused_embed.py:207",
@@ -1054,27 +1517,8 @@ def main() -> int:
     k3b_rows = {}
     k3b_by = {}
     with torch.no_grad():
-        for bname, (emb, x) in blocks.items():
-            lin1, ln, _, _, lin2 = emb
-            w = (lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
-                 lin2.weight.t().contiguous(), lin2.bias)
-            pooled, arg = fe.fused_embed_pool_fwd(x, *w, "tanh")
-            again, arg2 = fe.fused_embed_pool_fwd(x, *w, "tanh")
-            check(torch.equal(pooled, again) and torch.equal(arg, arg2),
-                  f"K3 {bname}: two launches differ")
-            y = fe._embed(x, *w, "tanh")  # [B, E, 64] plain activations
-            want, _ = y.max(dim=1)
-            top2 = y.topk(2, dim=1)
-            clear = (top2.values[:, 0] - top2.values[:, 1]) > 1e-5
-            err = float((pooled - want).abs().max())
-            arg_ok = torch.equal(arg.long()[clear], top2.indices[:, 0][clear])
-            del y, top2
-            check(err <= 1e-4, f"K3 {bname}: pooled max abs err {err}")
-            check(arg_ok, f"K3 {bname}: argmax differs where the top two "
-                  f"differ by more than 1e-5")
-            print(f"[K3] {bname} {list(x.shape)}: max abs err {err:.3g}, "
-                  f"argmax equal on {int(clear.sum())}/{clear.numel()} "
-                  f"clear units, two launches bitwise equal")
+        for bname, w, x in embed_blocks(policy, flat):
+            err = k3_check(x, w, f"[K3] {bname}")
             B, Ent, F = x.shape
             for rows, rec in k3_rows.items():
                 xr = x[:rows]
@@ -1301,6 +1745,15 @@ def main() -> int:
     for key, n in sensor_phase(env, policy, gen).items():
         results[key]["sensor_launches"] = n
 
+    # ---- the dataset phase: training and evaluation on resampled batches --
+    ds = dataset_phase(root, dev, gen)
+    for key, rec in results.items():
+        rec["dataset_launches"] = ds["launches"][key.split(",")[0]]
+    results["K3"]["max_abs_err"] = max(results["K3"]["max_abs_err"],
+                                       ds["K3_err"])
+    results["K4"]["max_abs_err"] = max(results["K4"]["max_abs_err"],
+                                       ds["ippo"]["K4_err"])
+
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
     # each launch costs the host more, and the launch-bound train iterations
@@ -1337,7 +1790,8 @@ def main() -> int:
             "shape")})
         line["kernels"][-1].update({k: r[k] for k in (
             "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
-            "sensor_launches", "bar_readings") if k in r})
+            "sensor_launches", "dataset_launches", "bar_readings")
+            if k in r})
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

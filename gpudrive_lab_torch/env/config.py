@@ -1,18 +1,19 @@
 """Environment configuration (port of ``gpudrive_lab_tpu/env/config.py``).
 
 ``EnvConfig`` holds the options of the reference's env config (reference:
-gpudrive/env/config.py) that the port reads, or refuses when set (VBD,
-reward conditioning).  The other options (dataset selection, rendering,
-road-graph sizes, reward-conditioning bounds, VBD weights) arrive with the
-code that reads them.  Action grids are numpy and
-become lookup-table tensors inside the env.
+gpudrive/env/config.py) that the port reads, or refuses when set (VBD).
+The other options (rendering, road-graph sizes, VBD weights) arrive with
+the code that reads them.  Action grids are numpy and become lookup-table
+tensors inside the env.  ``SceneConfig`` and ``SelectionDiscipline`` drive
+``env/dataset.select_scenes``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 import math
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -88,7 +89,18 @@ class EnvConfig:
     init_steps: int = 0
 
     reward_type: str = "sparse_on_goal_achieved"
-    # also: weighted_combination | distance_to_logs
+    # also: weighted_combination | distance_to_logs | reward_conditioned
+    # reward_conditioned: per-agent (collision, goal, off_road) weights,
+    # drawn at every reset within these bounds (condition_mode "random"),
+    # scaled from them by a named profile ("preset") or given ("fixed"),
+    # and appended to the ego observation.
+    condition_mode: str = "random"
+    collision_weight_lb: float = -1.0
+    collision_weight_ub: float = 0.0
+    goal_achieved_weight_lb: float = 1.0
+    goal_achieved_weight_ub: float = 2.0
+    off_road_weight_lb: float = -1.0
+    off_road_weight_ub: float = 0.0
 
     dist_to_goal_threshold: float = 2.0
 
@@ -116,6 +128,8 @@ class EnvConfig:
     # None = auto: tile-skip narrow phase (kernel K1) when the road bucket
     # is large (scene/rtiles.py); True forces it, False disables.
     use_tile_collision: Optional[bool] = None
+    # Seeds the env's host generator (reward conditioning, agent removal).
+    seed: int = 0
 
     def sim_params(self) -> Params:
         """EnvConfig -> static step Params (the analogue of
@@ -165,3 +179,30 @@ class EnvConfig:
             use_tile_collision=self.use_tile_collision,
         )
 
+
+
+class SelectionDiscipline(enum.Enum):
+    """reference: gpudrive/env/config.py:149-158."""
+
+    FIRST_N = 0
+    RANDOM_N = 1
+    PAD_N = 2
+    EXACT_N = 3
+    K_UNIQUE_N = 4
+    RANGE_N = 5
+    CUSTOM_N = 6
+
+
+@dataclasses.dataclass
+class SceneConfig:
+    """reference: gpudrive/env/config.py:160-181."""
+
+    batch_size: int
+    dataset_size: int
+    path: Optional[str] = None
+    num_scenes: Optional[int] = None
+    discipline: SelectionDiscipline = SelectionDiscipline.PAD_N
+    k_unique_scenes: Optional[int] = None
+    seed: Optional[int] = None
+    start_idx: int = 0
+    custom_idx: Optional[List[int]] = None

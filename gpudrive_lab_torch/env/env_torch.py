@@ -11,10 +11,13 @@ stacks that many consecutive observations along the feature axis.  The
 sensors come from ``get_lidar_obs``, ``get_bev_obs`` and ``get_camera_obs``
 (core/lidar.py, core/bev.py, core/render.py).
 
-Not ported yet (they raise if a config asks for them): VBD and reward
-conditioning (its weights are resampled on the host at every reset); also
-``swap_data_batch``, ``remove_agents_by_id`` and the dataset loader (the env
-takes ``scene_paths``).
+The worlds come from ``scene_paths`` or from a ``data_loader``
+(env/dataset.py), whose next batch ``swap_data_batch`` compiles in place of
+the current one.  Reward conditioning (``reward_type="reward_conditioned"``)
+draws the per-agent weights on the host from ``np.random.default_rng(
+config.seed)``, the JAX env's generator, so both envs draw the same weights
+(and the same agents for ``remove_agents_by_id``).  VBD is not ported yet
+and raises; so do ``vis`` and ``render`` (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from gpudrive_lab_torch.core.lidar import lidar_observation
 from gpudrive_lab_torch.core.render import CameraConfig, batch_render
 from gpudrive_lab_torch.core.types import Params, Scene, SimState
 from gpudrive_lab_torch.env.config import EnvConfig
+from gpudrive_lab_torch.env.dataset import SceneDataLoader
 from gpudrive_lab_torch.scene.compiler import build_scene
 
 
@@ -265,17 +269,16 @@ class GPUDriveTorchEnv:
     def __init__(
         self,
         config: EnvConfig,
-        scene_paths: List[str],
+        scene_paths: Optional[List[str]] = None,
         max_roads: Optional[int] = None,
         device=None,
+        data_loader: Optional[SceneDataLoader] = None,
     ):
         unsupported = [
             name for name, on in (
                 ("use_vbd", config.use_vbd),
                 ("distance_to_vdb_trajs",
                  config.reward_type == "distance_to_vdb_trajs"),
-                ("reward_conditioned",
-                 config.reward_type == "reward_conditioned"),
             ) if on
         ]
         if unsupported:
@@ -284,6 +287,14 @@ class GPUDriveTorchEnv:
             )
         self.config = config
         self.params = config.sim_params()
+        self.data_loader = data_loader
+        if scene_paths is None:
+            if data_loader is None:
+                raise ValueError("need data_loader or scene_paths")
+            self.data_iterator = iter(data_loader)
+            scene_paths = next(self.data_iterator)
+        else:
+            self.data_iterator = iter(data_loader) if data_loader else None
         self.scene_paths = list(scene_paths)
         self.num_worlds = len(self.scene_paths)
         self.episode_len = C.EPISODE_LEN
@@ -292,6 +303,7 @@ class GPUDriveTorchEnv:
             max_agents=config.agent_bucket, device=device,
         )
         self.device = self.scene.device
+        self._max_roads = self.scene.max_roads
         self.max_agent_count = int(self.scene.agents.valid.shape[1])
 
         classic = not config.disable_classic_obs
@@ -300,10 +312,13 @@ class GPUDriveTorchEnv:
             road_map_obs=config.road_map_obs and classic,
             partner_obs=config.partner_obs and classic,
             norm_obs=config.norm_obs,
+            reward_conditioned=config.reward_type == "reward_conditioned",
         )
         self.observation_dim = self.spec.obs_dim * config.num_stack
         self._build_action_table()
+        self._build_spaces()
 
+        self._rng = np.random.default_rng(config.seed)
         self.reward_weights = self._default_reward_weights()
         self.world_time_steps = torch.zeros(
             self.num_worlds, dtype=torch.int32, device=self.device
@@ -338,23 +353,114 @@ class GPUDriveTorchEnv:
         )
         self.action_space_n = len(table)
 
+    def _build_spaces(self):
+        """gymnasium spaces over the single-agent view (reference:
+        env_torch.py constructor and _set_discrete_action_space); None
+        where gymnasium is not installed, which the env does not need."""
+        try:
+            import gymnasium
+        except ImportError:
+            self.observation_space = None
+            self.action_space = None
+            return
+        self.observation_space = gymnasium.spaces.Box(
+            low=-np.inf, high=np.inf, shape=(self.observation_dim,),
+            dtype=np.float32,
+        )
+        if self.action_keys is not None:
+            self.action_space = gymnasium.spaces.Discrete(self.action_space_n)
+        else:  # state dynamics: continuous 10-float action rows
+            self.action_space = gymnasium.spaces.Box(
+                low=-np.inf, high=np.inf, shape=(C.ACTION_DIM,),
+                dtype=np.float32,
+            )
+
     def _default_reward_weights(self) -> torch.Tensor:
-        """[W, A, 3] (collision, goal_achieved, off_road) weights."""
+        """[W, A, 3] (collision, goal_achieved, off_road) weights; drawn by
+        ``_sample_reward_weights`` when reward-conditioned."""
         cfg = self.config
+        if cfg.reward_type == "reward_conditioned":
+            return self._sample_reward_weights()
         w = torch.tensor(
             [cfg.collision_weight, cfg.goal_achieved_weight,
              cfg.off_road_weight], dtype=torch.float32, device=self.device,
         )
         return w.expand(self.num_worlds, self.max_agent_count, 3).contiguous()
 
+    # Reward-conditioning presets (reference: env_torch.py:247-401).
+    _PRESETS = {
+        "cautious": (0.9, 0.7, 0.9),
+        "aggressive": (0.5, 0.9, 0.6),
+        "risk_taker": (0.3, 1.0, 0.4),
+    }
+
+    def _sample_reward_weights(self, condition_mode: Optional[str] = None,
+                               agent_type=None) -> torch.Tensor:
+        """Per-agent (collision, goal, off_road) weights [W, A, 3]
+        (reference: env_torch.py:247-401): ``condition_mode`` "random"
+        draws within the configured bounds from the env's host generator;
+        "preset" scales the bounds by the profile ``agent_type`` names
+        ("balanced" by default, or cautious, aggressive, risk_taker);
+        "fixed" broadcasts the 3 weights ``agent_type`` gives."""
+        cfg = self.config
+        mode = condition_mode or cfg.condition_mode
+        lo = np.array([cfg.collision_weight_lb, cfg.goal_achieved_weight_lb,
+                       cfg.off_road_weight_lb])
+        hi = np.array([cfg.collision_weight_ub, cfg.goal_achieved_weight_ub,
+                       cfg.off_road_weight_ub])
+        shape = (self.num_worlds, self.max_agent_count, 3)
+        if mode == "fixed":
+            if agent_type is None:
+                raise ValueError(
+                    "condition_mode='fixed' requires agent_type=[c, g, o] "
+                    "weights (reference: env_torch.py:376-381)"
+                )
+            w = np.broadcast_to(np.asarray(agent_type, np.float32), shape)
+        elif mode == "preset":
+            name = agent_type if isinstance(agent_type, str) else "balanced"
+            if name == "balanced":
+                vec = (lo + hi) / 2.0
+            else:
+                s = self._PRESETS[name]
+                vec = np.array([lo[0] * s[0], hi[1] * s[1], lo[2] * s[2]])
+            w = np.broadcast_to(vec.astype(np.float32), shape)
+        else:  # random
+            w = self._rng.uniform(lo, hi, shape)
+        return torch.as_tensor(np.ascontiguousarray(w, np.float32),
+                               device=self.device)
+
     # ----- core API ------------------------------------------------------
 
-    def reset(self, env_idx_list=None):
+    @property
+    def cont_agent_mask(self) -> torch.Tensor:
+        """[W, A] bool of the controlled agents, on the env's device."""
+        return self.scene.agents.controlled
+
+    def get_controlled_agents_mask(self) -> np.ndarray:
+        return self.scene.agents.controlled.cpu().numpy()
+
+    def reset(self, env_idx_list=None, condition_mode: Optional[str] = None,
+              agent_type=None):
         """(Re)generate worlds and return the observation
         (reference: env_torch.py:403-451).  ``env_idx_list`` None resets
         every world; otherwise it lists the world indices to reset.  With
         ``init_steps`` the reset worlds come back warmed up by that many
-        steps of expert log playback, their clocks at ``init_steps``."""
+        steps of expert log playback, their clocks at ``init_steps``.
+        Reward-conditioned, the reset worlds get new weights
+        (``_sample_reward_weights(condition_mode, agent_type)``, drawn for
+        every world as the JAX env draws them)."""
+        self._reset_state(env_idx_list)
+        if self.config.reward_type == "reward_conditioned":
+            fresh_w = self._sample_reward_weights(condition_mode, agent_type)
+            if env_idx_list is None or self.reward_weights is None:
+                self.reward_weights = fresh_w
+            else:
+                self.reward_weights = torch.where(
+                    self._world_mask(env_idx_list)[:, None, None], fresh_w,
+                    self.reward_weights)
+        return self.get_obs(reset=True)
+
+    def _reset_state(self, env_idx_list):
         if env_idx_list is None or self.state is None:
             self.world_time_steps.zero_()
             self._fresh = stepmod.reset(self.scene, None, self.params)
@@ -367,12 +473,14 @@ class GPUDriveTorchEnv:
             self._fresh_clock = self.world_time_steps.clone()
             self.state = self._fresh
         else:
-            mask = torch.zeros(self.num_worlds, dtype=torch.bool,
-                               device=self.device)
-            mask[torch.as_tensor(env_idx_list, dtype=torch.long,
-                                 device=self.device)] = True
-            self.reset_worlds(mask)
-        return self.get_obs(reset=True)
+            self.reset_worlds(self._world_mask(env_idx_list))
+
+    def _world_mask(self, env_idx_list) -> torch.Tensor:
+        mask = torch.zeros(self.num_worlds, dtype=torch.bool,
+                           device=self.device)
+        mask[torch.as_tensor(env_idx_list, dtype=torch.long,
+                             device=self.device)] = True
+        return mask
 
     def reset_worlds(self, mask: torch.Tensor):
         """Reset the worlds where ``mask`` [W] bool is set, as a per-world
@@ -497,3 +605,121 @@ class GPUDriveTorchEnv:
     def world_done(self) -> torch.Tensor:
         """[W] bool: every created agent of the world is done."""
         return ((self.state.done != 0) | ~self.scene.agents.valid).all(dim=1)
+
+    # ----- log playback / experts ---------------------------------------
+
+    def get_expert_actions(self):
+        """Inverse actions with per-model clamps (reference:
+        env_torch.py:1445-1509) over the full horizon: (actions
+        [W, A, T, 10], pos [W, A, T, 2], vel [W, A, T, 2], yaw [W, A, T],
+        valids [W, A, T])."""
+        ag = self.scene.agents
+        return (expert_actions(self.scene, self.config.dynamics_model),
+                ag.traj_pos, ag.traj_vel, ag.traj_yaw, ag.traj_valid)
+
+    def advance_sim_with_log_playback(self, init_steps: int):
+        """Step every agent through its logged actions from trajectory time
+        0 for ``init_steps`` steps (reference: env_torch.py:1274-1293)."""
+        self.state, self.world_time_steps = expert_log_playback(
+            self.scene, self.state, self.world_time_steps, self.params,
+            self.config.dynamics_model, init_steps,
+        )
+
+    # ----- dataset churn -------------------------------------------------
+
+    def swap_data_batch(self, data_batch: Optional[List[str]] = None):
+        """The analogue of Manager::setMaps (reference:
+        env_torch.py:1351-1384): compile ``data_batch`` (by default the
+        loader's next batch, restarting the loader when it is spent) into
+        the current padded shapes and reset every world.  A batch that
+        needs a bigger road or agent bucket is compiled once more with
+        buckets of its own (with ``agent_bucket="auto"`` the agent rows
+        otherwise stay at the current count across swaps)."""
+        if data_batch is None:
+            if self.data_iterator is None:
+                raise ValueError("swap_data_batch needs a data_loader or a "
+                                 "data_batch")
+            try:
+                data_batch = next(self.data_iterator)
+            except StopIteration:
+                self.data_iterator = iter(self.data_loader)
+                data_batch = next(self.data_iterator)
+        if len(data_batch) != self.num_worlds:
+            raise ValueError(f"swap needs {self.num_worlds} scenes, got "
+                             f"{len(data_batch)}")
+        self.scene_paths = list(data_batch)
+        ab = self.config.agent_bucket
+        if ab == "auto":
+            ab = self.max_agent_count  # keep shapes stable across swaps
+        try:
+            scene = build_scene(self.scene_paths, self.params,
+                                self._max_roads, max_agents=ab,
+                                device=self.device)
+        except ValueError:  # the batch needs a bigger bucket
+            scene = build_scene(self.scene_paths, self.params,
+                                max_agents=self.config.agent_bucket,
+                                device=self.device)
+            self._max_roads = scene.max_roads
+        self._set_scene(scene)
+
+    def remove_agents_by_id(self, perc_to_rmv_per_world: float,
+                            remove_controlled_agents: bool = True):
+        """Mark ``ceil(perc * n)`` agents of each world deleted, drawn from
+        the env's host generator among its controlled agents (or, with
+        ``remove_controlled_agents=False``, its uncontrolled valid ones),
+        recompile the worlds without them and reset (reference:
+        env_torch.py:1295-1349 -> Manager::deleteAgents)."""
+        ag = self.scene.agents
+        ctrl = ag.controlled.cpu().numpy()
+        mask = ctrl if remove_controlled_agents else (
+            ag.valid.cpu().numpy() & ~ctrl)
+        aid = ag.aid.cpu().numpy()
+        deleted: dict[int, frozenset] = {}
+        for w in range(self.num_worlds):
+            ids = aid[w][mask[w]]
+            k = int(np.ceil(perc_to_rmv_per_world * len(ids)))
+            if k:
+                deleted[w] = frozenset(
+                    self._rng.choice(ids, size=k, replace=False).tolist())
+        self._set_scene(build_scene(
+            self.scene_paths, self.params, self._max_roads, deleted,
+            max_agents=self.config.agent_bucket, device=self.device))
+
+    def _set_scene(self, scene: Scene):
+        """Install a recompiled scene and reset every world.  Fixed reward
+        weights follow a change of the agent rows; conditioned ones are
+        drawn anew by the reset."""
+        self.scene = scene
+        self.max_agent_count = int(scene.agents.valid.shape[1])
+        if (self.config.reward_type != "reward_conditioned"
+                and self.reward_weights.shape[1] != self.max_agent_count):
+            self.reward_weights = self._default_reward_weights()
+        self.state = None
+        self.reset()
+
+    # ----- rendering -----------------------------------------------------
+
+    @property
+    def vis(self):
+        raise NotImplementedError(
+            "rendering is not ported yet (ROADMAP Queue A item 6, "
+            "visualize/)")
+
+    def render(self, env_idx: int = 0, zoom_radius: float | None = None):
+        return self.vis
+
+    # ----- name exports --------------------------------------------------
+
+    def get_env_filenames(self) -> dict:
+        """{world: the scene's map name}."""
+        return _decode_names(self.scene.map_name)
+
+    def get_scenario_ids(self) -> dict:
+        """{world: the scene's scenario id}."""
+        return _decode_names(self.scene.scenario_id)
+
+
+def _decode_names(codes: torch.Tensor) -> dict:
+    """[W, L] character codes, 0-padded -> {world: string}."""
+    return {i: "".join(chr(c) for c in row if c != 0)
+            for i, row in enumerate(codes.cpu().tolist())}

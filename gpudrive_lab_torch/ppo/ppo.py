@@ -129,6 +129,17 @@ def compute_gae(rewards, values, dones, last_value, gamma, gae_lambda,
     return advs, advs + values
 
 
+def clip_by_global_norm(parameters, max_norm: float) -> None:
+    """optax.clip_by_global_norm on the parameters' gradients, in place:
+    scale by max_norm / g_norm only when g_norm >= max_norm, computed on
+    the device (no host read)."""
+    grads = [p.grad for p in parameters if p.grad is not None]
+    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = g_norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
+
+
 def _map_obs(fn, obs):
     """Apply fn to the obs tensor or to each tensor of the split tuple."""
     return tuple(fn(o) for o in obs) if isinstance(obs, tuple) else fn(obs)
@@ -431,17 +442,6 @@ class PPO:
                       "entropy": ent_loss.detach(),
                       "approx_kl": approx_kl.detach()}
 
-    def _clip_grads(self):
-        """optax.clip_by_global_norm: scale by max_norm / g_norm only when
-        g_norm >= max_norm, computed on the device (no host read)."""
-        max_norm = self.config.max_grad_norm
-        grads = [p.grad for p in self.policy.parameters()
-                 if p.grad is not None]
-        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        keep = g_norm < max_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
-
     def learn(self, scene: Scene, batch: dict, traj: Transition,
               reward_weights: torch.Tensor, ent_coef=None, perms=None,
               row_starts=None) -> dict:
@@ -473,7 +473,8 @@ class PPO:
                 loss, aux = self.loss(mb, ent_coef)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
-                self._clip_grads()
+                clip_by_global_norm(self.policy.parameters(),
+                                    cfg.max_grad_norm)
                 self.optimizer.step()
                 auxes.append(aux)
         return {k: torch.stack([a[k] for a in auxes]).reshape(

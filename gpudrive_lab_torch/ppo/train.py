@@ -1,9 +1,13 @@
 """PPO training entry point (port of ``gpudrive_lab_tpu/ppo/train.py``;
 reference: baselines/ppo/ppo_pufferlib.py).
 
-Builds the env over scene files, the late-fusion policy and the PPO trainer,
-then trains with periodic checkpoints (the policy's and Adam's
-``state_dict``), optional resume, and the entropy-floor controller.
+Builds the env over scene batches drawn from ``--data-dir`` by
+``SceneDataLoader`` (with replacement, seeded with ``--seed``, as the JAX
+CLI draws them), the late-fusion policy and the PPO trainer, then trains
+with periodic checkpoints (the policy's and Adam's ``state_dict``),
+optional resume, and the entropy-floor controller.  ``--resample-interval``
+N swaps in the loader's next batch every N agent-steps; the rollout's
+action generator runs on across swaps.
 
 Run (on the card by default; ``--device cpu`` for a small CPU run):
 
@@ -13,9 +17,7 @@ Run (on the card by default; ``--device cpu`` for a small CPU run):
 compute mode with ``--fused-embed``); ``--obs-store bf16`` or
 ``split-bf16`` with it is the JAX package's production pairing.
 
-Not ported yet, and refused when asked for: the scene dataset loader and
-resampling (``--resample-interval``; the CLI takes the first
-``--num-worlds`` sorted scenes of ``--data-dir``), rollout videos
+Not ported yet, and refused when asked for: rollout videos
 (``--video-interval``) and the live dashboard (``--dashboard``); each names
 its ROADMAP item.  The JAX package's dispatch options ``--rollout-mode``,
 ``--iters-per-dispatch`` and ``--packed-io`` are accepted: this trainer has
@@ -26,15 +28,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import glob
 import json
-import os
 from pathlib import Path
 
 import torch
 
 from gpudrive_lab_torch.core import step as stepmod
 from gpudrive_lab_torch.env.config import EnvConfig
+from gpudrive_lab_torch.env.dataset import SceneDataLoader
 from gpudrive_lab_torch.env.env_torch import (
     GPUDriveTorchEnv,
     expert_log_playback,
@@ -64,6 +65,19 @@ def make_fresh(env: GPUDriveTorchEnv):
             env.params, env.config.dynamics_model, k,
         )
     return fresh
+
+
+def fresh_carry(env: GPUDriveTorchEnv, fresh, rng: torch.Generator):
+    """The trainer's env carry at the start of the env's scene batch:
+    ``fresh`` with every clock at ``init_steps``, drawing actions from
+    ``rng``.  After a swap ``rng`` is the live generator, not a reseeded
+    one, which would replay spent exploration noise."""
+    return EnvCarry(
+        state=fresh,
+        world_time_steps=torch.full((env.num_worlds,), env.config.init_steps,
+                                    dtype=torch.int32, device=env.device),
+        rng=rng,
+    )
 
 
 def check_compact_capacity(env: GPUDriveTorchEnv, compact: int | None,
@@ -143,12 +157,8 @@ def build_trainer(env: GPUDriveTorchEnv, ppo_config: PPOConfig,
               env.config.reward_type, ppo_config,
               perm_generator=torch.Generator().manual_seed(seed + 1))
     fresh = make_fresh(env)
-    carry = EnvCarry(
-        state=fresh,
-        world_time_steps=torch.full((env.num_worlds,), env.config.init_steps,
-                                    dtype=torch.int32, device=env.device),
-        rng=torch.Generator(device=env.device).manual_seed(seed),
-    )
+    carry = fresh_carry(env, fresh,
+                        torch.Generator(device=env.device).manual_seed(seed))
     if iters_per_dispatch <= 1:
         return ppo, carry, fresh, ppo.train_step
 
@@ -199,8 +209,6 @@ def load_checkpoint(ckpt_dir, policy, optimizer=None) -> int | None:
 def _refuse(args):
     """The options of the JAX CLI whose code is not ported yet."""
     refused = [
-        (args.resample_interval > 0, "--resample-interval",
-         "Queue A item 1, the dataset loader"),
         (args.video_interval > 0, "--video-interval",
          "Queue A item 6, visualize/"),
         (args.dashboard, "--dashboard", "Queue A item 6, utils/dashboard"),
@@ -216,13 +224,18 @@ def main(argv=None):
                    help="torch device; the run fails without CUDA unless "
                         "another device is named (e.g. cpu)")
     p.add_argument("--data-dir", default=str(ROOT / "data" / "pool_v3"),
-                   help="directory of scene JSON files; the first "
-                        "--num-worlds in sorted order are used")
+                   help="directory of tfrecord*.json scenes; batches of "
+                        "--num-worlds are drawn from them with replacement")
     p.add_argument("--num-worlds", type=int, default=4)
+    p.add_argument("--dataset-size", type=int, default=1000,
+                   help="use at most this many scenes of --data-dir "
+                        "(sorted)")
     p.add_argument("--total-timesteps", type=int, default=2_000_000)
     p.add_argument("--rollout-len", type=int, default=32)
     p.add_argument("--resample-interval", type=int, default=0,
-                   help="not ported yet (needs the dataset loader)")
+                   help="agent-steps between scene-batch swaps (0 = never)")
+    p.add_argument("--log-interval", type=int, default=10,
+                   help="iterations between metric lines")
     p.add_argument("--checkpoint-path", default="runs")
     p.add_argument("--checkpoint-interval", type=int, default=200)
     p.add_argument("--seed", type=int, default=42)
@@ -286,11 +299,11 @@ def main(argv=None):
     from gpudrive_lab_torch.utils.logging import MetricsLogger
     from gpudrive_lab_torch.utils.profiling import Profile, Utilization
 
-    paths = sorted(glob.glob(os.path.join(args.data_dir, "*.json")))
-    paths = paths[: args.num_worlds]
-    if len(paths) < args.num_worlds:
-        raise SystemExit(f"{args.data_dir}: {len(paths)} scene files, "
-                         f"--num-worlds {args.num_worlds}")
+    loader = SceneDataLoader(
+        root=args.data_dir, batch_size=args.num_worlds,
+        dataset_size=args.dataset_size, sample_with_replacement=True,
+        seed=args.seed,
+    )
     cfg = EnvConfig(
         reward_type="weighted_combination", collision_weight=-0.75,
         off_road_weight=-0.75, goal_achieved_weight=1.0,
@@ -301,8 +314,8 @@ def main(argv=None):
         agent_bucket=(int(args.agent_bucket) if args.agent_bucket
                       and args.agent_bucket != "auto" else args.agent_bucket),
     )
-    env = GPUDriveTorchEnv(cfg, paths, max_roads=args.max_roads,
-                           device=args.device)
+    env = GPUDriveTorchEnv(cfg, data_loader=loader,
+                           max_roads=args.max_roads, device=args.device)
     ppo_cfg = PPOConfig(
         rollout_len=args.rollout_len, num_minibatches=args.num_minibatches,
         ent_coef=args.ent_coef, update_epochs=args.update_epochs,
@@ -336,11 +349,28 @@ def main(argv=None):
     util.start()
     global_step = start_step
     iteration = 0
+    resampled_at = start_step
+    resample_count = 0
+    resample_time_s = 0.0
     ent_coef = args.ent_coef
     ep_win_keys = ("perc_goal_achieved", "perc_collisions", "perc_off_road")
     ep_win = dict.fromkeys(("episodes",) + ep_win_keys, 0.0)
     try:
         while global_step < args.total_timesteps:
+            if (args.resample_interval
+                    and global_step - resampled_at >= args.resample_interval):
+                env_before = profile.elapsed["env"]
+                with profile.phase("env"):
+                    env.swap_data_batch()
+                    check_compact_capacity(env, ppo_cfg.compact,
+                                           ppo_cfg.compact_mode,
+                                           ppo_cfg.compact_blocks)
+                    fresh = make_fresh(env)
+                    carry = fresh_carry(env, fresh, carry.rng)
+                resampled_at = global_step
+                resample_count += 1
+                # this swap's duration (profile.elapsed is cumulative)
+                resample_time_s = profile.elapsed["env"] - env_before
             with profile.phase("learn"):
                 carry, metrics = train_fn(env.scene, carry, fresh,
                                           env.reward_weights, ent_coef)
@@ -367,13 +397,16 @@ def main(argv=None):
                             * args.rollout_len * args.iters_per_dispatch)
             prev_iteration = iteration
             iteration += args.iters_per_dispatch
-            if iteration // 10 != prev_iteration // 10:
+            if (iteration // args.log_interval
+                    != prev_iteration // args.log_interval):
                 n_ep = max(ep_win["episodes"], 1.0)
                 m["episodes"] = ep_win["episodes"]
                 for key in ep_win_keys:
                     m[key] = ep_win[key] / n_ep
                 ep_win = dict.fromkeys(ep_win, 0.0)
                 logger.log(dict(iteration=iteration, global_step=global_step,
+                                resamples=resample_count,
+                                resample_time_s=round(resample_time_s, 4),
                                 **{k: round(v, 5) for k, v in m.items()},
                                 **profile.summary(), **util.summary()),
                            step=global_step)

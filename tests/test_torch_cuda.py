@@ -591,6 +591,91 @@ def test_bf16_train_iteration_on_card(dev):
     assert any(not torch.equal(a, b) for a, b in zip(params, before))
 
 
+def _pool_dir():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(root, "data", "pool_v3")
+
+
+def test_swap_on_card_then_kernels_match_plain(dev):
+    """A loader's env on the card swaps in its next batch (another
+    controlled count); K2 and K3 then hold against their plain versions on
+    the new batch's state and observation rows."""
+    from gpudrive_lab_torch.core import collision
+    from gpudrive_lab_torch.core import step as stepmod
+    from gpudrive_lab_torch.env.dataset import SceneDataLoader
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG, slice_policy
+
+    loader = SceneDataLoader(_pool_dir(), 8, 1000,
+                             sample_with_replacement=True, seed=1)
+    env = GPUDriveTorchEnv(EnvConfig(**SLICE_CONFIG), data_loader=loader,
+                           device=dev)
+    n0 = int(env.cont_agent_mask.sum())
+    env.swap_data_batch()
+    ctrl = env.cont_agent_mask
+    assert int(ctrl.sum()) != n0
+    for _ in range(3):
+        env.step_dynamics(torch.randint(0, env.action_space_n,
+                                        ctrl.shape, device=dev))
+    s, scene = env.state, env.scene
+    active = ~collision._skip_mask(scene, s, stepmod.current_step_index(s))
+    feat = collision.agent_features(scene, s, active,
+                                    collision.agent_half_extents(scene))
+    roads_t = collision.road_features_t(scene)
+    got = _dense_on_card(dev, feat, roads_t)
+    assert torch.equal(got, kernels.agent_road_hits_dense_plain(
+        feat.cpu(), roads_t.cpu()))
+    policy = slice_policy(device=dev, seed=0)
+    rows = env.get_obs()[ctrl]
+    for emb, x in ((policy.partner_embed,
+                    rows[:, 6:768].unflatten(-1, (127, 6))),
+                   (policy.road_map_embed,
+                    rows[:, 768:].unflatten(-1, (200, 13)))):
+        lin1, ln, _, _, lin2 = emb
+        w = [t.detach().cpu() for t in (
+            lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
+            lin2.weight.t().contiguous(), lin2.bias)]
+        _check_k3(x.contiguous(), x.cpu().contiguous(), w, "tanh")
+
+
+def test_vec_env_on_card_matches_cpu(dev):
+    """VecGPUDriveEnv over 4 worlds on the card against itself on the CPU:
+    20 steps of the same actions and a resample, rewards, terminals and
+    episode returns equal, obs within 1e-4."""
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.dataset import SceneDataLoader
+    from gpudrive_lab_torch.env.env_vec import VecGPUDriveEnv
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG
+
+    def vec(device):
+        return VecGPUDriveEnv(
+            EnvConfig(**SLICE_CONFIG),
+            SceneDataLoader(_pool_dir(), 4, 1000, seed=2,
+                            sample_with_replacement=True), device=device)
+
+    gv, cv = vec(dev), vec("cpu")
+    assert torch.equal(gv.flat_ids.cpu(), cv.flat_ids)
+    gobs, cobs = gv.reset(), cv.reset()
+    rng = np.random.default_rng(0)
+    for t in range(20):
+        if t == 10:
+            gv.resample_scenario_batch()
+            cv.resample_scenario_batch()
+            gobs, cobs = gv.reset(), cv.reset()
+        # the ego and partner blocks are ordered; road rows may tie
+        assert float((gobs.cpu()[:, :768] - cobs[:, :768]).abs().max()) \
+            <= 1e-4
+        acts = torch.from_numpy(rng.integers(0, 91, cv.num_agents))
+        gobs, grew, gterm, _, ginfo = gv.step(acts.to(dev))
+        cobs, crew, cterm, _, cinfo = cv.step(acts)
+        assert torch.equal(grew.cpu(), crew)
+        assert torch.equal(gterm.cpu(), cterm)
+        assert ginfo == cinfo
+        assert torch.equal(gv.episode_returns.cpu(), cv.episode_returns)
+    assert gv.data_coverage == cv.data_coverage
+
+
 def test_wrapper_refuses_mixed_devices(dev):
     agents, roads = _features(np.random.default_rng(0), 1, 16, 8)
     with pytest.raises(ValueError):

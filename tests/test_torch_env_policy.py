@@ -35,6 +35,7 @@ from gpudrive_lab_torch.networks.late_fusion import (
 from gpudrive_lab_torch.rollout import SLICE_CONFIG, rollout
 from torch_parity import (
     POOL_SCENES,
+    assert_obs_match,
     flax_variables,
     match_rows,
     python_scene_compiler,
@@ -42,7 +43,6 @@ from torch_parity import (
 
 PATHS = POOL_SCENES[20:22]
 PATHS3 = POOL_SCENES[20:23]
-E = C.EGO_FEAT_DIM
 P = (C.MAX_AGENTS - 1) * C.PARTNER_FEAT_DIM
 
 
@@ -53,45 +53,6 @@ def _envs(paths=PATHS, **overrides):
         jenv = GPUDriveTPUEnv(JaxEnvConfig(num_worlds=len(paths), **kw),
                               scene_paths=paths)
     return env, jenv
-
-
-def _road_rows(road, road_mask):
-    """[W, A, K, 14]: the 13 road features with the road mask beside."""
-    road = road.reshape(road.shape[:-1] + (C.MAX_AGENT_MAP_OBS, 13))
-    return np.concatenate([road, road_mask[..., None].astype(np.float32)], -1)
-
-
-def assert_obs_match(env, jenv, obs, jobs, ordered_roads=False):
-    """Frame by frame (``num_stack`` frames, oldest first): the ego and
-    partner blocks in order, the road rows as sets (with the road mask of
-    the newest frame beside them) unless ``ordered_roads``."""
-    obs, jobs = obs.numpy(), np.asarray(jobs)
-    assert obs.shape == jobs.shape
-    spec = env.spec
-    head = (E if spec.ego_state else 0) + (P if spec.partner_obs else 0)
-    n = env.config.num_stack
-    frames = obs.reshape(obs.shape[:-1] + (n, -1))
-    jframes = jobs.reshape(jobs.shape[:-1] + (n, -1))
-    if spec.partner_obs:
-        np.testing.assert_array_equal(env.partner_mask.numpy(),
-                                      np.asarray(jenv.partner_mask))
-    else:
-        assert env.partner_mask is None and jenv.partner_mask is None
-    no_mask = np.zeros(obs.shape[:-1] + (C.MAX_AGENT_MAP_OBS,), bool)
-    for i in range(n):
-        got, want = frames[..., i, :], jframes[..., i, :]
-        np.testing.assert_allclose(got[..., :head], want[..., :head],
-                                   rtol=1e-5, atol=1e-5)
-        if not spec.road_map_obs:
-            continue
-        newest = i == n - 1
-        got = _road_rows(got[..., head:], env.road_mask.numpy() if newest
-                         else no_mask)
-        want = _road_rows(want[..., head:], np.asarray(jenv.road_mask)
-                          if newest else no_mask)
-        if not ordered_roads:
-            got = match_rows(got, want)
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_match_rows_pairs_rows_apart_by_float_noise():

@@ -8,9 +8,10 @@ carrying of state between the two packages, on the CPU:
     (parameters and Adam state) resumed in the port, where one further
     update matches the JAX update to 1e-4 (with the bf16 policy dtype, at
     the bars of torch_parity.bf16_bars);
-  * the CLI: trains 2 iterations on 2 worlds, writes a checkpoint that
-    --continue-training resumes (also with --policy-dtype bf16), and
-    refuses what is not ported yet.
+  * the CLI: draws its scene batches, the first and each resampled one,
+    as the JAX CLI's loader does; trains 2 iterations on 2 worlds, writes a
+    checkpoint that --continue-training resumes (also with --policy-dtype
+    bf16), and refuses what is not ported yet.
 """
 
 import json
@@ -26,6 +27,7 @@ import optax
 import pytest
 import torch
 
+from gpudrive_lab_tpu.env import dataset as jdataset
 from gpudrive_lab_tpu.env.config import EnvConfig as JaxEnvConfig
 from gpudrive_lab_tpu.env.env_jax import GPUDriveTPUEnv
 from gpudrive_lab_tpu.ppo import train as jtrain
@@ -239,26 +241,27 @@ def _cli(*args, timeout=300):
 
 
 def test_cli_trains_and_resumes(tmp_path):
-    """2 iterations on 2 worlds (88 samples each) and a checkpoint; then
+    """2 iterations on 2 worlds (80 samples each) and a checkpoint; then
     --continue-training resumes from its global step for one more."""
     common = ["--device", "cpu", "--num-worlds", "2", "--rollout-len", "8",
               "--num-minibatches", "2", "--update-epochs", "1",
               "--agent-bucket", "auto", "--compact", "16", "--compact-mode",
               "flat", "--checkpoint-path", str(tmp_path),
               "--data-dir", os.path.dirname(PATHS[0])]
-    # the CLI takes the first --num-worlds sorted scenes: copy the two
+    # the CLI draws its batch from --data-dir with replacement: seed 42
+    # draws the first of the two scenes twice (5 + 5 controlled agents)
     data = tmp_path / "scenes"
     data.mkdir()
     for p in PATHS:
         (data / os.path.basename(p)).write_text(Path(p).read_text())
     common[-1] = str(data)
     lines = _cli(*common, "--total-timesteps", "150")
-    assert lines[-1] == {"final_global_step": 176}
+    assert lines[-1] == {"final_global_step": 160}
     ckpt = torch.load(tmp_path / train.CHECKPOINT)
-    assert (ckpt["iteration"], ckpt["global_step"]) == (2, 176)
+    assert (ckpt["iteration"], ckpt["global_step"]) == (2, 160)
     lines = _cli(*common, "--total-timesteps", "200", "--continue-training")
-    assert {"resumed_from": 176} in lines
-    assert lines[-1] == {"final_global_step": 264}
+    assert {"resumed_from": 160} in lines
+    assert lines[-1] == {"final_global_step": 240}
 
 
 def test_cli_trains_bf16_and_resumes(tmp_path):
@@ -276,17 +279,59 @@ def test_cli_trains_bf16_and_resumes(tmp_path):
               "--fused-embed", "--checkpoint-path", str(tmp_path),
               "--data-dir", str(data)]
     lines = _cli(*common, "--total-timesteps", "150")
-    assert lines[-1] == {"final_global_step": 176}
+    assert lines[-1] == {"final_global_step": 160}
     ckpt = torch.load(tmp_path / train.CHECKPOINT)
     assert all(v.dtype == torch.float32 for v in ckpt["policy"].values())
     lines = _cli(*common, "--total-timesteps", "200", "--continue-training")
-    assert {"resumed_from": 176} in lines
-    assert lines[-1] == {"final_global_step": 264}
+    assert {"resumed_from": 160} in lines
+    assert lines[-1] == {"final_global_step": 240}
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_cli_draws_the_jax_loaders_batches(seed, tmp_path, monkeypatch,
+                                           capsys):
+    """The CLI's first batch and each batch it swaps in are the ones the
+    JAX CLI's loader draws for the same --data-dir, --num-worlds,
+    --dataset-size and --seed (gpudrive_lab_tpu/ppo/train.py:465-471), not
+    the first --num-worlds sorted scenes; the run logs its resamples and
+    writes its checkpoint."""
+    seen = []
+
+    class Recording(train.GPUDriveTorchEnv):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append(list(self.scene_paths))
+
+        def swap_data_batch(self, data_batch=None):
+            super().swap_data_batch(data_batch)
+            seen.append(list(self.scene_paths))
+
+    monkeypatch.setattr(train, "GPUDriveTorchEnv", Recording)
+    pool = os.path.dirname(POOL_SCENES[0])
+    train.main(["--device", "cpu", "--data-dir", pool, "--num-worlds", "3",
+                "--dataset-size", "40", "--seed", str(seed),
+                "--rollout-len", "4", "--num-minibatches", "1",
+                "--update-epochs", "1", "--agent-bucket", "auto",
+                "--compact", "96", "--compact-mode", "flat",
+                "--resample-interval", "1", "--log-interval", "1",
+                "--total-timesteps", "300",
+                "--checkpoint-path", str(tmp_path)])
+    logs = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+            if x.startswith("{")]
+    jloader = jdataset.SceneDataLoader(
+        root=pool, batch_size=3, dataset_size=40,
+        sample_with_replacement=True, seed=seed)
+    it = iter(jloader)
+    assert len(seen) >= 3
+    assert seen == [next(it) for _ in seen]
+    assert len({tuple(b) for b in seen}) == len(seen)
+    resamples = [rec["resamples"] for rec in logs if "resamples" in rec]
+    assert resamples == list(range(len(seen)))
+    assert (tmp_path / train.CHECKPOINT).exists()
 
 
 def test_cli_refuses_what_is_not_ported():
-    for flag in (["--resample-interval", "5"], ["--video-interval", "1"],
-                 ["--dashboard"]):
+    for flag in (["--video-interval", "1"], ["--dashboard"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             train.main(["--device", "cpu", *flag])
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from gpudrive_lab_tpu.core import types as jtypes
+from gpudrive_lab_torch import constants as C
 from gpudrive_lab_tpu.scene import compiler as jcompiler
 from gpudrive_lab_torch.core import types as ttypes
 from gpudrive_lab_torch.networks.convert import (
@@ -31,6 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTHETIC_SCENE = os.path.join(ROOT, "tests", "data", "tfrecord_synthetic_0.json")
 POOL_SCENES = sorted(glob.glob(os.path.join(ROOT, "data", "pool_v3", "*.json")))
 AGENT_AGENT = os.path.join(ROOT, "tests", "data", "agent_agent_collision.json")
+PARTNER_DIM = (C.MAX_AGENTS - 1) * C.PARTNER_FEAT_DIM
 ROAD_EDGE = os.path.join(ROOT, "tests", "data", "agent_road_edge_collision.json")
 
 # The suite runs in several worker processes at once; torch's default of one
@@ -351,3 +353,64 @@ def bf16_bars(cfg, start):
     return dict(start=start, update_rel=0.25,
                 atol=2 * cfg.learning_rate * steps,
                 fraction=0.06 if cfg.fused_embed else 0.12, moment_rel=0.25)
+
+
+def _road_rows(road, road_mask):
+    """[W, A, K, 14]: the 13 road features with the road mask beside."""
+    road = road.reshape(road.shape[:-1] + (C.MAX_AGENT_MAP_OBS, 13))
+    return np.concatenate([road, road_mask[..., None].astype(np.float32)], -1)
+
+
+def assert_obs_match(env, jenv, obs, jobs, ordered_roads=False):
+    """Frame by frame (``num_stack`` frames, oldest first): the ego and
+    partner blocks in order, the road rows as sets (with the road mask of
+    the newest frame beside them) unless ``ordered_roads``."""
+    obs, jobs = obs.numpy(), np.asarray(jobs)
+    assert obs.shape == jobs.shape
+    spec = env.spec
+    head = (C.EGO_FEAT_DIM + 3 * spec.reward_conditioned
+            if spec.ego_state else 0) + (PARTNER_DIM if spec.partner_obs else 0)
+    n = env.config.num_stack
+    frames = obs.reshape(obs.shape[:-1] + (n, -1))
+    jframes = jobs.reshape(jobs.shape[:-1] + (n, -1))
+    if spec.partner_obs:
+        np.testing.assert_array_equal(env.partner_mask.numpy(),
+                                      np.asarray(jenv.partner_mask))
+    else:
+        assert env.partner_mask is None and jenv.partner_mask is None
+    no_mask = np.zeros(obs.shape[:-1] + (C.MAX_AGENT_MAP_OBS,), bool)
+    for i in range(n):
+        got, want = frames[..., i, :], jframes[..., i, :]
+        np.testing.assert_allclose(got[..., :head], want[..., :head],
+                                   rtol=1e-5, atol=1e-5)
+        if not spec.road_map_obs:
+            continue
+        newest = i == n - 1
+        got = _road_rows(got[..., head:], env.road_mask.numpy() if newest
+                         else no_mask)
+        want = _road_rows(want[..., head:], np.asarray(jenv.road_mask)
+                          if newest else no_mask)
+        if not ordered_roads:
+            got = match_rows(got, want)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def assert_flat_obs_match(got, want):
+    """Flat 3368-float rows [N, D] (a vec env's or a wrapper's): NaN rows
+    in the same places, the ego and partner blocks within 1e-5 in order,
+    the road rows within 1e-5 as sets."""
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    live = ~nan.any(axis=1)
+    got, want = got[live], want[live]
+    head = C.EGO_FEAT_DIM + PARTNER_DIM
+    np.testing.assert_allclose(got[:, :head], want[:, :head], rtol=1e-5,
+                               atol=1e-5)
+    rows = (-1, C.MAX_AGENT_MAP_OBS, C.ROAD_GRAPH_FEAT_DIM)
+    np.testing.assert_allclose(
+        match_rows(got[:, head:].reshape(rows), want[:, head:].reshape(rows)),
+        want[:, head:].reshape(rows), rtol=1e-5, atol=1e-5)
