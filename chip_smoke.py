@@ -24,8 +24,13 @@ drawn from data/pool_v3 with a swap before every iteration, swap timings
 cold, warm and behind PrefetchingSceneLoader, VecGPUDriveEnv with a
 resample, evaluate_policy and multi_policy_rollout with a PolicyActor from
 the CLI's checkpoint, and IPPO over SB3MultiAgentEnv with a resample; K2,
-K3 and K4 held against their plain versions after a swap), checks the
-outputs, and prints:
+K3 and K4 held against their plain versions after a swap), then the il
+phase (the behavior-cloning CLI on 16 worlds x 2 batches of expert data,
+closed-loop evaluation, closed_loop_rollout with importance and tokens,
+the linear probes, the BC net on the card against the CPU) and the rnn
+phase (the recurrent PPO CLI on 512 worlds, 3 or more float32 iterations
+and one bf16, an LSTM step on the card against the CPU, one profiled
+iteration), checks the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -45,7 +50,8 @@ outputs, and prints:
     bound_by, library_ms; for K1 and K2 also wrapper_ms and their
     large-map reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
-    rollout; for every kernel its launches in the dataset phase);
+    rollout; for every kernel its launches in the dataset, il and rnn
+    phases);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -1015,7 +1021,9 @@ def k3_against_plain(policy, rows, what: str) -> float:
                    for bname, w, x in embed_blocks(policy, rows))
 
 
-def k2_against_plain(env, what: str) -> None:
+def k2_against_plain(env, what: str, tag: str = "[dataset]") -> None:
+    """K2 at ``env``'s state (anything with .scene and .state) against its
+    plain version, bit for bit, and against a second launch."""
     import torch
 
     from gpudrive_lab_torch.core import kernels
@@ -1026,25 +1034,30 @@ def k2_against_plain(env, what: str) -> None:
     want = kernels.agent_road_hits_dense_plain(feat, roads_t)
     check(torch.equal(got, want), f"K2 {what}: differs from its plain "
           f"version at {int((got != want).sum())} agents")
-    print(f"[dataset] K2 {what}: bitwise equal to plain, two launches equal, "
+    print(f"{tag} K2 {what}: bitwise equal to plain, two launches equal, "
           f"{int(got.sum())} agents hit")
 
 
 class PhaseTimer:
-    """CUDA events around the PPO trainer's rollout, GAE (prepare) and
-    update (learn) calls while it is installed, for the CLI's iterations."""
+    """CUDA events around a PPO trainer's rollout, GAE (prepare) and update
+    (learn) calls while it is installed, for a CLI's iterations; ``last``
+    holds the last rollout call's (trainer, args, result).  ``trainer`` is
+    the class, PPO by default."""
 
     PHASES = (("rollout", "rollout"), ("gae", "prepare"), ("update", "learn"))
 
-    def __init__(self):
+    def __init__(self, trainer=None):
         self.marks = []
+        self.trainer = trainer
+        self.last = None
 
     def __enter__(self):
         import torch
 
         from gpudrive_lab_torch.ppo.ppo import PPO
 
-        self.saved = {m: getattr(PPO, m) for _, m in self.PHASES}
+        self.trainer = self.trainer or PPO
+        self.saved = {m: getattr(self.trainer, m) for _, m in self.PHASES}
         for name, m in self.PHASES:
             def timed(*a, _f=self.saved[m], _n=name, **k):
                 start = torch.cuda.Event(enable_timing=True)
@@ -1053,15 +1066,15 @@ class PhaseTimer:
                 out = _f(*a, **k)
                 end.record()
                 self.marks.append((_n, start, end))
+                if _n == "rollout":
+                    self.last = (a[0], a[1:], out)
                 return out
-            setattr(PPO, m, timed)
+            setattr(self.trainer, m, timed)
         return self
 
     def __exit__(self, *exc):
-        from gpudrive_lab_torch.ppo.ppo import PPO
-
         for m, f in self.saved.items():
-            setattr(PPO, m, f)
+            setattr(self.trainer, m, f)
 
     def iterations(self) -> list:
         """[{rollout, gae, update} ms] per iteration."""
@@ -1354,6 +1367,387 @@ def dataset_phase(root: str, dev, gen) -> dict:
     for k in ("K2", "K3", "K4"):
         check(results["launches"][k] > 0, f"the dataset phase did not "
               f"launch {k}")
+    return results
+
+
+# the rnn phase: the recurrent PPO CLI at full width
+RNN_WORLDS = 512
+RNN_COMPACT = 4416  # >= the controlled agents of the CLI's batch (seed 42)
+RNN_CPU_ROWS = 4416  # rows of the policy step held against the CPU
+
+
+def rnn_phase(root: str, dev) -> dict:
+    """Recurrent PPO through ``train_rnn.main`` in process: 512 worlds
+    drawn with replacement (seed 42), the flat layout on RNN_COMPACT rows,
+    T=32, 4 minibatches x 2 epochs, default PolicyConfig widths and
+    lstm_hidden 128; at least 3 float32 iterations
+    (--total-timesteps one above twice the most samples an iteration can
+    give), then one iteration with --policy-dtype bf16 --obs-store bf16.
+    Per iteration the rollout, GAE and update ms (CUDA events), samples
+    and train samples/s; the peak memory of each run beside the reckoned
+    one; one policy step on the last state's 4,416 rows against the CPU;
+    K2 against its plain version at the last state; one more float32
+    iteration under torch.profiler for the device's busy share.  K3 and K4
+    must not launch.  The launch counts are set to 0 at the start; the
+    checks' launches are left out.  Returns {launches, ...}."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.dataset import SceneDataLoader
+    from gpudrive_lab_torch.env.env_torch import flat_observation
+    from gpudrive_lab_torch.networks.late_fusion import (
+        LateFusionLSTMPolicy,
+        PolicyConfig,
+    )
+    from gpudrive_lab_torch.ppo import train_rnn
+    from gpudrive_lab_torch.ppo.ppo_rnn import RnnPPO
+    from gpudrive_lab_torch.scene.compiler import compile_world
+    from gpudrive_lab_torch.utils.profiling import (
+        device_breakdown,
+        device_trace,
+    )
+
+    pool = os.path.join(root, "data", "pool_v3")
+    W, T, M, E = RNN_WORLDS, 32, 4, 2
+    params = EnvConfig(dynamics_model="classic",
+                       collision_behavior="ignore").sim_params()
+    batch = next(iter(SceneDataLoader(pool, W, 1000,
+                                      sample_with_replacement=True,
+                                      seed=42)))
+    n_ctrl = sum(int(compile_world(p, params, frozenset()).agent[
+        "controlled"].sum()) for p in batch)
+    timesteps = 2 * T * n_ctrl + 1
+    rows = RNN_COMPACT * T // M
+    # saved for the backward pass per minibatch, float32: the road block's
+    # first Linear's output, its LayerNorm's input statistics and the tanh
+    # output ([rows, 200, 64] each), the partner block's likewise ([rows,
+    # 127, 64]), the second Linear's output before the max (transient)
+    gb = rows * 64 * 4 / 1e9
+    reckoned = 3 * gb * (200 + 127) + gb * 200 + rows * 3368 * 4 / 1e9
+    print(f"[rnn] {W} worlds, {n_ctrl} controlled agents, --compact "
+          f"{RNN_COMPACT}; minibatch {RNN_COMPACT // M} rows x T {T} = "
+          f"{rows} rows; one [{rows}, 200, 64] float32 activation "
+          f"{gb * 200:.2f} GB; reckoned update peak about {reckoned:.1f} GB "
+          f"beyond the env and the stored trajectory")
+    set_counts(dict.fromkeys(counts(), 0))
+    results = {"runs": []}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for what, extra in (
+                ("float32", ["--total-timesteps", str(timesteps)]),
+                ("bf16", ["--total-timesteps", "1", "--policy-dtype", "bf16",
+                          "--obs-store", "bf16"])):
+            argv = ["--device", dev.type, "--data-dir", pool, "--num-worlds",
+                    str(W), "--compact", str(RNN_COMPACT), "--rollout-len",
+                    str(T), "--num-minibatches", str(M), "--update-epochs",
+                    str(E), "--checkpoint-path",
+                    os.path.join(ckpt, what)] + extra
+            print(f"[rnn] train_rnn.main {' '.join(argv)}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with PhaseTimer(RnnPPO) as timer:
+                t0 = time.time()
+                train_rnn.main(argv)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            iters = timer.iterations()
+            with open(os.path.join(ckpt, what, "rnn.metrics.jsonl")) as f:
+                logs = [json.loads(line) for line in f]
+            rec = logs[-1]
+            check(all(np.isfinite(rec[k]) for k in ("pg_loss", "v_loss",
+                                                     "entropy")),
+                  f"rnn {what}: a loss is not finite: {rec}")
+            steps = rec["global_step"]
+            for i, ph in enumerate(iters):
+                print(f"[rnn] {what} iteration {i}: rollout "
+                      f"{ph['rollout']:.3f} ms, gae {ph['gae']:.3f} ms, "
+                      f"update {ph['update']:.3f} ms (CUDA events)")
+            print(f"[rnn] {what}: {len(iters)} iterations, {steps} samples, "
+                  f"mean train samples/s {steps / sum(sum(p.values()) for p in iters) * 1e3:.1f}"
+                  f" (samples / the iterations' event time), wall "
+                  f"{wall:.2f} s (env build included); peak memory "
+                  f"{peak:.2f} GB; last losses pg {rec['pg_loss']}, v "
+                  f"{rec['v_loss']}, entropy {rec['entropy']}")
+            results["runs"].append(dict(dtype=what, iterations=iters,
+                                        samples=steps, peak_gb=peak,
+                                        wall_s=wall))
+            if what == "float32":
+                check(len(iters) >= 3, f"rnn: {len(iters)} float32 "
+                      "iterations, expected at least 3")
+                rnn, args, (carry, _) = timer.last
+                ckpt_f32 = torch.load(os.path.join(ckpt, what,
+                                                   train_rnn.CHECKPOINT),
+                                      map_location="cpu")
+            else:
+                check(len(iters) == 1, f"rnn bf16: {len(iters)} iterations")
+            del timer
+    launches = counts()
+    results["launches"] = launches
+    print(f"[rnn] launches in the phase: {launches}")
+    check(launches["K2"] > 0, "the rnn phase did not launch K2")
+    for k in ("K1", "K3", "K4", "K3-bf16", "K4-bf16"):
+        check(launches[k] == 0, f"the rnn phase launched {k}")
+
+    # one policy step on the last state's rows, card against CPU
+    scene, fresh, rw = args[0], args[2], args[3]
+    cidx = rnn.ctrl_slots(scene)
+    obs = flat_observation(scene, carry.state, rnn.params, rnn.spec, rw,
+                           cidx)[0][:RNN_CPU_ROWS]
+    lstm = tuple(x[:RNN_CPU_ROWS] for x in carry.lstm)
+    done = rnn.reset_signal(carry.state, carry.just_reset, cidx)[
+        :RNN_CPU_ROWS]
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        pol = LateFusionLSTMPolicy(PolicyConfig(), device=device)
+        pol.load_state_dict(ckpt_f32["policy"])
+        with torch.no_grad():
+            (c, h), logits, value = pol(obs.to(device),
+                                        tuple(x.to(device) for x in lstm),
+                                        done.to(device))
+        outs.append([x.cpu() for x in (c, h, logits, value)])
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    check(err <= 1e-4, f"rnn: the policy step on the card differs from the "
+          f"CPU by {err}")
+    results["cpu_err"] = err
+    print(f"[rnn] one LSTM policy step on {RNN_CPU_ROWS} rows of the last "
+          f"state, the trained weights: card against CPU max abs diff "
+          f"{err:.3g} (carries, logits, value; bar 1e-4)")
+    uncounted(lambda: k2_against_plain(
+        SimpleNamespace(scene=scene, state=carry.state),
+        "at the rnn CLI's last state", "[rnn]"))
+
+    # one more float32 iteration under torch.profiler: the busy share
+    phases = ("rollout", "gae", "update")
+    init_lstm = carry.lstm
+    with device_trace() as prof:
+        t0 = time.time()
+        with record_function("rollout"):
+            carry, traj = rnn.rollout(scene, carry, fresh, rw)
+        with record_function("gae"):
+            batch = rnn.prepare(scene, carry, traj, rw)
+        with record_function("update"):
+            rnn.learn(batch, init_lstm)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    busy, by_name, by_phase = device_breakdown(prof, phases)
+    busy /= 1e3
+    results["profile"] = dict(wall_ms=wall, busy_ms=busy,
+                              by_phase={p: us / 1e3 for p, us in
+                                        by_phase.items()},
+                              activities=sum(c for _, c in by_name.values()))
+    print(f"[rnn profile] wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"(busy share {busy / wall:.3f}), "
+          f"{results['profile']['activities']} device activities; device "
+          + ", ".join(f"{p} {us / 1e3:.3f} ms" for p, us in by_phase.items()))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (us, cnt) in ranked[:10]:
+        print(f"[rnn profile] {us / 1e3:10.3f} ms {cnt:6d}x  {name}")
+    return results
+
+
+# the il phase: the BC CLI, closed-loop analysis and probes
+IL_WORLDS = 16
+IL_CPU_ROWS = 512  # BC net rows held against the CPU
+IL_CLOSED_LOOP_STEPS = 46  # half an episode keeps the two phases near 60 s
+
+
+def il_phase(root: str, dev) -> dict:
+    """Behavior cloning at full width through ``il.train.main`` in process:
+    --num-worlds 16 --num-batches 2 --epochs 1 --batch-size 256
+    --eval-heldout (91 all-expert delta_local steps of data generation per
+    batch, a swap between them; the default BCConfig, num_stack 5,
+    network_dim 128, 4 heads); then, with the saved policy, the first
+    batch's data generated again, ``closed_loop_rollout`` over it for
+    IL_CLOSED_LOOP_STEPS steps with importance, tokens and states, ``probe_action_and_position`` and the
+    position probes with an intervention; the BC net on 512 dataset rows
+    (8 of them with every partner masked) against the CPU; K2 against its
+    plain version.  The launch counts are set to 0 at the start; the
+    checks' launches are left out.  Returns {launches, ...}."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.dataset import SceneDataLoader
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.il import analysis
+    from gpudrive_lab_torch.il import data_generation as gen_mod
+    from gpudrive_lab_torch.il import train as il_train
+    from gpudrive_lab_torch.il.dataset import ExpertDataset
+    from gpudrive_lab_torch.il.linear_probing import (
+        ProbeConfig,
+        probe_action_and_position,
+    )
+
+    pool = os.path.join(root, "data", "pool_v3")
+    set_counts(dict.fromkeys(counts(), 0))
+    results = {}
+    timings = {"gen": [], "steps": []}
+    real_gen = gen_mod.generate_state_action_pairs
+    real_make = il_train.make_bc_train_step
+
+    def timed_gen(env, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real_gen(env, *a, **k)
+        torch.cuda.synchronize()
+        timings["gen"].append(time.time() - t0)
+        return out
+
+    def timed_make(model, cfg):
+        opt, step = real_make(model, cfg)
+
+        def step_timed(batch):
+            loss = step(batch)
+            timings["steps"].append(loss)
+            return loss
+        return opt, step_timed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bc_policy.pt")
+        argv = ["--device", dev.type, "--data-dir", pool, "--num-worlds",
+                str(IL_WORLDS), "--num-batches", "2", "--epochs", "1",
+                "--batch-size", "256", "--eval-heldout", "--out", out]
+        print(f"[il] il.train.main {' '.join(argv[:-1])} <tmp>")
+        il_train.generate_state_action_pairs = timed_gen
+        il_train.make_bc_train_step = timed_make
+        buf = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                il_train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            il_train.generate_state_action_pairs = real_gen
+            il_train.make_bc_train_step = real_make
+        printed = buf.getvalue().splitlines()
+        for line in printed:
+            print(f"[il] | {line}")
+        model = il_train.load_policy(out, device=dev)
+    lines = [json.loads(x) for x in printed if x.startswith("{")]
+    epoch = [x for x in lines if "epoch" in x]
+    evals = {x["split"]: x for x in lines if "split" in x}
+    check(len(epoch) == 1 and np.isfinite(epoch[0]["loss"]),
+          f"il: epoch lines {epoch}")
+    check("train" in evals and "heldout" in evals, f"il: evaluations {evals}")
+    check("skipped" not in evals["heldout"], f"il: heldout {evals}")
+    for split in ("train", "heldout"):
+        check(all(0.0 <= evals[split][k] <= 1.0 for k in (
+            "goal_rate", "collision_rate", "off_road_rate")),
+            f"il: {split} rates out of range")
+    n_steps = len(timings["steps"])
+    check(n_steps > 0, "il: no BC step ran")
+    gen_s = sum(timings["gen"])
+    results.update(gen_s=timings["gen"], bc_steps=n_steps, wall_s=wall,
+                   evals=evals, loss=epoch[0]["loss"],
+                   train_s=epoch[0]["elapsed"])
+    print(f"[il] CLI: data generation {', '.join(f'{t:.3f}' for t in timings['gen'])}"
+          f" s per batch of {IL_WORLDS} worlds x 91 steps; {n_steps} BC "
+          f"steps of 256 in {epoch[0]['elapsed']} s ({n_steps / max(epoch[0]['elapsed'], 1e-9):.1f} steps/s, "
+          f"the CLI's clock); wall {wall:.2f} s in all (data, training, "
+          f"two 91-step evaluations); train {evals['train']}; heldout "
+          f"{evals['heldout']}")
+
+    # the first batch again: data, dataset, closed loop, probes
+    batch = next(iter(SceneDataLoader(pool, IL_WORLDS, 100000)))
+    cfg = EnvConfig(dynamics_model="delta_local",
+                    collision_behavior="ignore", max_controlled_agents=0)
+    env = GPUDriveTorchEnv(cfg, batch, device=dev)
+    data = gen_mod.generate_state_action_pairs(env)
+    data["controlled_mask"] = data["valid_mask"]
+    ds = ExpertDataset(data, rollout_len=model.config.num_stack, device=dev)
+    eval_env = GPUDriveTorchEnv(dataclasses.replace(
+        cfg, max_controlled_agents=128), batch, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = analysis.closed_loop_rollout(eval_env, model, model.config,
+                                       max_steps=IL_CLOSED_LOOP_STEPS,
+                                       collect_importance=True,
+                                       collect_tokens=True,
+                                       collect_states=True)
+    torch.cuda.synchronize()
+    cl_s = time.time() - t0
+    imp = res.importance
+    check(bool(torch.isfinite(imp).all()) and float(
+        (imp.sum(-1) - 1).abs().max()) <= 1e-4,
+        "il: importance weights do not sum to 1")
+    check(all(0.0 <= res.metrics[k] <= 1.0 for k in (
+        "goal_rate", "collision_rate", "off_road_rate", "goal_progress")),
+        f"il: closed-loop metrics {res.metrics}")
+    results["closed_loop"] = dict(metrics=res.metrics, seconds=cl_s,
+                                  steps=imp.shape[0])
+    print(f"[il] closed_loop_rollout, {IL_WORLDS} worlds x {imp.shape[0]} "
+          f"steps with importance {list(imp.shape)}, tokens "
+          f"{list(res.ro_tokens.shape)} and states: {cl_s:.2f} s; "
+          f"{res.metrics}")
+    del res
+    pcfg = ProbeConfig(epochs=1)
+    t0 = time.time()
+    probes = probe_action_and_position(model, ds, None, pcfg)
+    tokens = analysis.extract_token_dataset(model, ds)
+    labels = analysis.probe_labels_from_positions(ds, future_step=5)
+    t, w, a = ds.index_t.unbind(1)
+    valid = ds.data["partner_mask"][t, w, a] == 0
+    ego_probe, other_probe, pm = analysis.train_position_probes(
+        tokens, labels, valid, pcfg)
+    iv = analysis.intervention_effect(ego_probe, other_probe,
+                                      tokens["ego"][:256], 10)
+    torch.cuda.synchronize()
+    probe_s = time.time() - t0
+    for name, m in list(probes.items()) + list(pm.items()):
+        check(np.isfinite(m["loss"]) and 0.0 <= m["accuracy"] <= 1.0,
+              f"il: probe {name} {m}")
+    moved = float((iv["ego_pred"] != iv["ego_pred_prime"]).float().mean())
+    results["probes"] = dict(action_position=probes, position=pm,
+                             intervention_moved=moved, seconds=probe_s,
+                             samples=len(ds))
+    print(f"[il] probes on {len(ds)} samples: {probes}; position probes "
+          f"{pm}; intervention moved {moved:.4f} of 256 ego predictions; "
+          f"{probe_s:.2f} s")
+
+    # the BC net on 512 rows, card against CPU
+    rows = ds.batch(np.arange(0, len(ds), max(len(ds) // IL_CPU_ROWS, 1))[
+        :IL_CPU_ROWS])
+    rows["partner_mask"][:8] = True
+    cpu = il_train.EarlyFusionAttnBCNet(model.config, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    outs = []
+    for net, device in ((model, dev), (cpu, torch.device("cpu"))):
+        with torch.no_grad():
+            ctx, gmm, rec = net(rows["obs"].to(device),
+                                rows["partner_mask"].to(device),
+                                rows["road_mask"].to(device), record=True)
+        outs.append([x.cpu() for x in (ctx, *gmm,
+                                       rec["attn"]["ego_ro_cross.attn"])])
+    err = max(float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+              for a, b in zip(*outs))
+    check(err <= 1e-4, f"il: the BC net on the card differs from the CPU "
+          f"by {err}")
+    uni = outs[0][-1][:8]
+    check(float((uni - 1 / 127).abs().max()) <= 1e-6,
+          "il: rows with no live partner do not get uniform attention")
+    results["cpu_err"] = err
+    print(f"[il] BC net on {len(rows['obs'])} dataset rows (8 with every "
+          f"partner masked): card against CPU max diff {err:.3g} of the "
+          f"largest magnitude (context, means, variances, weights, "
+          f"ego->partner attention; bar 1e-4); masked rows uniform")
+    uncounted(lambda: k2_against_plain(eval_env, "at the closed loop's "
+                                       "last state", "[il]"))
+    launches = counts()
+    results["launches"] = launches
+    print(f"[il] launches in the phase: {launches}")
+    check(launches["K2"] > 0, "the il phase did not launch K2")
     return results
 
 
@@ -1754,6 +2148,15 @@ def main() -> int:
     results["K4"]["max_abs_err"] = max(results["K4"]["max_abs_err"],
                                        ds["ippo"]["K4_err"])
 
+    # ---- the il phase: behavior cloning, closed-loop analysis, probes -------
+    il = il_phase(root, dev)
+    # ---- the rnn phase: recurrent PPO (its profiled iteration last) --------
+    rnn = rnn_phase(root, dev)
+    for key, rec in results.items():
+        base = key.split(",")[0]
+        rec["il_launches"] = il["launches"][base]
+        rec["rnn_launches"] = rnn["launches"][base]
+
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
     # each launch costs the host more, and the launch-bound train iterations
@@ -1790,7 +2193,8 @@ def main() -> int:
             "shape")})
         line["kernels"][-1].update({k: r[k] for k in (
             "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
-            "sensor_launches", "dataset_launches", "bar_readings")
+            "sensor_launches", "dataset_launches", "il_launches",
+            "rnn_launches", "bar_readings")
             if k in r})
     print(json.dumps(line))
     print(card)

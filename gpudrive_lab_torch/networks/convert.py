@@ -1,5 +1,7 @@
-"""Flax ``LateFusionPolicy`` parameters and optax Adam state -> the port's
-``state_dict`` and ``torch.optim.Adam`` state.
+"""Flax parameters and optax Adam state -> the port's ``state_dict`` and
+``torch.optim.Adam`` (or ``AdamW``) state, for the late-fusion policy
+(``params_from_flax``), its LSTM variant (``lstm_params_from_flax``) and the
+attention BC net (``bc_params_from_flax``).
 
 The inverse of ``gpudrive_lab_tpu/networks/convert.py``'s key mapping
 (flax path -> reference ``NeuralNet`` module):
@@ -13,12 +15,15 @@ The inverse of ``gpudrive_lab_tpu/networks/convert.py``'s key mapping
 
 Flax ``Dense`` kernels are [in, out]; torch ``Linear.weight`` is [out, in],
 so kernels are transposed.  LayerNorm scale/bias map to weight/bias.  Adam's
-moments are trees of the parameters' shape and map the same way.
+moments are trees of the parameters' shape and map the same way.  The LSTM
+and BC converters take every leaf of the tree by its own name and refuse a
+tree with a leaf left over.
 
-``load_jax_checkpoint`` reads the JAX trainer's ``policy.pkl``
-(``gpudrive_lab_tpu/ppo/train.py::save_checkpoint``) without importing optax
-or flax: their classes in the pickle are read back as plain stand-ins, and
-a class from anywhere but numpy is refused.
+``load_jax_checkpoint`` reads the JAX trainers' pickles (the PPO trainer's
+and ``scripts/train_rnn.py``'s ``policy.pkl``, the BC trainer's
+``bc_policy.pkl``) without importing optax or flax: their classes in the
+pickle are read back as plain stand-ins, and a class from anywhere but
+numpy is refused.
 """
 
 from __future__ import annotations
@@ -61,6 +66,145 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+class _Leaves:
+    """A flax parameter tree whose leaves are taken by path, each once."""
+
+    def __init__(self, variables):
+        self.tree = variables.get("params", variables)
+        self.taken = set()
+
+    def __call__(self, *path) -> torch.Tensor:
+        if path in self.taken:
+            raise ValueError(f"leaf {'/'.join(path)} taken twice")
+        node = self.tree
+        for k in path:
+            node = node[k]
+        self.taken.add(path)
+        return _t(node)
+
+    def dense(self, sd, key, *path, bias=True):
+        sd[f"{key}.weight"] = self(*path, "kernel").T.contiguous()
+        if bias:
+            sd[f"{key}.bias"] = self(*path, "bias")
+
+    def layer_norm(self, sd, key, *path):
+        sd[f"{key}.weight"] = self(*path, "scale")
+        sd[f"{key}.bias"] = self(*path, "bias")
+
+    def has(self, *path) -> bool:
+        node = self.tree
+        for k in path:
+            if not isinstance(node, dict) or k not in node:
+                return False
+            node = node[k]
+        return True
+
+    def finish(self, sd):
+        """``sd``, once every leaf of the tree was taken."""
+        def leaves(node, path=()):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    yield from leaves(v, path + (k,))
+            else:
+                yield path
+
+        left = [p for p in leaves(self.tree) if p not in self.taken]
+        if left:
+            raise ValueError("flax leaves not mapped: "
+                             + ", ".join("/".join(p) for p in left))
+        return sd
+
+
+def _embed_block(take, sd, key, *path, first=0, ln=0):
+    """Dense_{first} -> LayerNorm_{ln} -> Dense_{first + 1} under ``path``
+    -> ``key``.{0, 1, 4} (the port's embed Sequential)."""
+    take.dense(sd, f"{key}.0", *path, f"Dense_{first}")
+    take.layer_norm(sd, f"{key}.1", *path, f"LayerNorm_{ln}")
+    take.dense(sd, f"{key}.4", *path, f"Dense_{first + 1}")
+
+
+def lstm_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX ``LateFusionLSTMPolicy`` tree -> ``LateFusionLSTMPolicy``
+    state_dict keys: _Embed_0..2 -> ego_embed, partner_embed,
+    road_map_embed; OptimizedLSTMCell_0/{ii, if, ig, io} (no bias) ->
+    lstm_i and {hi, hf, hg, ho} -> lstm_h, the four gates' kernels side by
+    side in i, f, g, o order; Dense_0 -> actor and Dense_1 -> critic (in
+    the feed-forward policy Dense_0 is shared_embed)."""
+    take = _Leaves(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for flax_name, key in _EMBEDS.items():
+        _embed_block(take, sd, key, flax_name)
+    cell = "OptimizedLSTMCell_0"
+    sd["lstm_i.weight"] = torch.cat(
+        [take(cell, f"i{g}", "kernel") for g in "ifgo"], dim=1).T.contiguous()
+    sd["lstm_h.weight"] = torch.cat(
+        [take(cell, f"h{g}", "kernel") for g in "ifgo"], dim=1).T.contiguous()
+    sd["lstm_h.bias"] = torch.cat([take(cell, f"h{g}", "bias")
+                                   for g in "ifgo"])
+    take.dense(sd, "actor", "Dense_0")
+    take.dense(sd, "critic", "Dense_1")
+    return take.finish(sd)
+
+
+def _mha(take, sd, key, *path):
+    """MultiHeadAttention: Dense_0..3 are q, k, v and the output."""
+    for i, name in enumerate(("q", "k", "v", "out")):
+        take.dense(sd, f"{key}.{name}", *path, f"Dense_{i}")
+
+
+def _self_attention_block(take, sd, key, *path):
+    """SelfAttentionBlock: layer l holds LayerNorm_{2l}, the attention
+    MultiHeadAttention_l, LayerNorm_{2l+1}, Dense_{2l} and Dense_{2l+1}."""
+    layer = 0
+    while take.has(*path, f"MultiHeadAttention_{layer}"):
+        k = f"{key}.layers.{layer}"
+        take.layer_norm(sd, f"{k}.ln1", *path, f"LayerNorm_{2 * layer}")
+        _mha(take, sd, f"{k}.attn", *path, f"MultiHeadAttention_{layer}")
+        take.layer_norm(sd, f"{k}.ln2", *path, f"LayerNorm_{2 * layer + 1}")
+        take.dense(sd, f"{k}.fc1", *path, f"Dense_{2 * layer}")
+        take.dense(sd, f"{k}.fc2", *path, f"Dense_{2 * layer + 1}")
+        layer += 1
+
+
+def bc_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX ``EarlyFusionAttnBCNet`` tree -> ``il.networks
+    .EarlyFusionAttnBCNet`` state_dict keys.  The embeds are made in one
+    compact method, so they are numbered in creation order: Dense_0,
+    LayerNorm_0, Dense_1 (ego), Dense_2, LayerNorm_1, Dense_3 (partners),
+    Dense_4, LayerNorm_2, Dense_5 (roads), then Dense_6, Dense_7 of the
+    ToM head when present; SelfAttentionBlock_0..2 are the partner, road
+    and fusion blocks; ego_ro_cross and ego_rg_cross hold
+    MultiHeadAttention_0 and LayerNorm_0..2 (query, key/value and the MLP's
+    norm) and Dense_0..1; GMMHead_0 holds Dense_0..3 (hidden, means,
+    log_std, mixture logits)."""
+    take = _Leaves(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for i, key in enumerate(("ego_embed", "ro_embed", "rg_embed")):
+        _embed_block(take, sd, key, first=2 * i, ln=i)
+    for i, key in enumerate(("ro_block", "rg_block", "fusion_block")):
+        _self_attention_block(take, sd, key, f"SelfAttentionBlock_{i}")
+    for key in ("ego_ro_cross", "ego_rg_cross"):
+        _mha(take, sd, f"{key}.attn", key, "MultiHeadAttention_0")
+        for i, ln in enumerate(("ln_q", "ln_kv", "ln_mlp")):
+            take.layer_norm(sd, f"{key}.{ln}", key, f"LayerNorm_{i}")
+        take.dense(sd, f"{key}.fc1", key, "Dense_0")
+        take.dense(sd, f"{key}.fc2", key, "Dense_1")
+    for i, name in enumerate(("hidden", "means", "log_std", "logits")):
+        take.dense(sd, f"gmm.{name}", "GMMHead_0", f"Dense_{i}")
+    if take.has("Dense_6"):
+        take.dense(sd, "tom_hidden", "Dense_6")
+        take.dense(sd, "tom_out", "Dense_7")
+    return take.finish(sd)
+
+
+def params_fn_for(module: torch.nn.Module):
+    """The converter of ``module``'s class."""
+    name = type(module).__name__
+    return {"LateFusionPolicy": params_from_flax,
+            "LateFusionLSTMPolicy": lstm_params_from_flax,
+            "EarlyFusionAttnBCNet": bc_params_from_flax}[name]
+
+
 def _adam_moments(opt_state):
     """The ScaleByAdamState (count, mu, nu) inside an optax state tree."""
     if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
@@ -74,16 +218,18 @@ def _adam_moments(opt_state):
 
 
 def adam_state_from_optax(opt_state, policy: torch.nn.Module) -> dict:
-    """optax ``chain(clip_by_global_norm, adam)`` state -> the ``state``
-    entry of ``torch.optim.Adam(policy.parameters()).state_dict()``:
-    per parameter index, ``step`` (optax ``count``), ``exp_avg`` (``mu``)
-    and ``exp_avg_sq`` (``nu``), Dense kernels transposed.  Load it with
+    """optax ``chain(clip_by_global_norm, adam)`` (or ``adamw``) state ->
+    the ``state`` entry of ``torch.optim.Adam(policy.parameters())
+    .state_dict()`` (AdamW's is the same): per parameter index, ``step``
+    (optax ``count``), ``exp_avg`` (``mu``) and ``exp_avg_sq`` (``nu``),
+    mapped by the converter of ``policy``'s class.  Load it with
     ``sd = opt.state_dict(); sd["state"] = ...; opt.load_state_dict(sd)``."""
     adam = _adam_moments(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in opt_state")
-    mu = params_from_flax(adam.mu)
-    nu = params_from_flax(adam.nu)
+    convert = params_fn_for(policy)
+    mu = convert(adam.mu)
+    nu = convert(adam.nu)
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
     return {
         i: {"step": step.clone(), "exp_avg": mu[name],
@@ -105,12 +251,15 @@ _ScaleByAdamState = collections.namedtuple("ScaleByAdamState",
 
 class _CheckpointUnpickler(pickle.Unpickler):
     """Reads numpy arrays and plain containers; optax and flax classes
-    become stand-ins, and any other class is refused."""
+    become stand-ins, a jax.numpy dtype its name, and any other class is
+    refused."""
 
     def find_class(self, module, name):
         root = module.split(".")[0]
         if root in ("optax", "flax"):
             return _ScaleByAdamState if name == "ScaleByAdamState" else _Opaque
+        if module == "jax.numpy":  # a dtype in a config, e.g. jnp.float32
+            return name
         if root == "numpy" or (module, name) == ("collections",
                                                  "OrderedDict"):
             return super().find_class(module, name)
@@ -118,14 +267,21 @@ class _CheckpointUnpickler(pickle.Unpickler):
                                      "checkpoint")
 
 
+def read_jax_pickle(path) -> dict:
+    """A JAX trainer's pickle as plain containers and numpy arrays."""
+    with open(path, "rb") as f:
+        return _CheckpointUnpickler(f).load()
+
+
 def load_jax_checkpoint(path, policy: torch.nn.Module,
                         optimizer: torch.optim.Optimizer | None = None) -> int:
-    """Load the JAX trainer's ``policy.pkl`` (``variables``, ``opt_state``,
-    ``iteration``, ``global_step``) into ``policy`` and, when given and the
-    file holds Adam state, ``optimizer``.  Returns the global step."""
-    with open(path, "rb") as f:
-        ckpt = _CheckpointUnpickler(f).load()
-    policy.load_state_dict(params_from_flax(ckpt["variables"]))
+    """Load a JAX trainer's pickle (``variables`` and, from the PPO
+    trainers, ``opt_state`` and ``global_step``; ``train_rnn.py`` adds
+    ``arch``, the BC trainer ``config``) into ``policy`` through the
+    converter of its class and, when given and the file holds Adam state,
+    ``optimizer``.  Returns the global step (0 when the file has none)."""
+    ckpt = read_jax_pickle(path)
+    policy.load_state_dict(params_fn_for(policy)(ckpt["variables"]))
     if optimizer is not None and "opt_state" in ckpt:
         sd = optimizer.state_dict()
         sd["state"] = adam_state_from_optax(ckpt["opt_state"], policy)

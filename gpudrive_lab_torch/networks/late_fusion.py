@@ -15,7 +15,9 @@ road blocks go through kernel K3 forward and kernel K4 backward
 recomputed in the backward pass (``torch.utils.checkpoint``) instead of
 keeping their [B, E, 64] activations.  The forward also takes the
 pre-split (ego, partner, road) tuple of ``flat_observation(split=True)``.
-The LSTM variant is not ported (ROADMAP).
+``LateFusionLSTMPolicy`` is the recurrent variant (the same three embeds,
+unfused, then an LSTM cell and the actor and critic heads), the policy of
+``ppo/ppo_rnn.py``.
 
 Compute dtype (``PolicyConfig.dtype``): torch.float32, or torch.bfloat16
 with flax's semantics for ``dtype=jnp.bfloat16`` (flax 0.12.3), not
@@ -221,6 +223,133 @@ class LateFusionPolicy(nn.Module):
             logits = self.actor(hidden)
             value = self.critic(hidden)[..., 0]
         return logits.reshape(lead + (cfg.action_dim,)), value
+
+
+def lecun_normal_(w: torch.Tensor, generator) -> None:
+    """flax's default Dense kernel init: a normal of variance 1/fan_in
+    truncated at two standard deviations (std corrected for the cut)."""
+    std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
+class LateFusionLSTMPolicy(nn.Module):
+    """Recurrent late-fusion actor-critic: the three embeds (ego, and the
+    max over partners and over road points), an LSTM cell over their
+    concatenation, then the actor logits and the critic value (port of the
+    JAX ``LateFusionLSTMPolicy``; reference: the optional use_rnn path of
+    the puffer policy, integrations/puffer/ppo.py:59-73,156-163).
+
+    ``forward(obs, carry, done=None) -> (carry, logits, value)``.  The
+    carry is ``(c, h)``, flax's order (torch's LSTMCell returns (h, c)),
+    float32 [..., lstm_hidden] in both compute dtypes; ``done`` [...]
+    multiplies it by ``1 - done`` before the cell.  The cell is flax's
+    ``OptimizedLSTMCell``: gates i, f, g, o from ``lstm_i(x)`` (no bias)
+    plus ``lstm_h(h)`` (with bias), ``c' = sigmoid(f) c + sigmoid(i)
+    tanh(g)``, ``h' = sigmoid(o) tanh(c')``; ``lstm_i`` and ``lstm_h`` hold
+    the four gates' kernels side by side in that order.  With the bf16
+    dtype the two products and their sum are bf16 (flax's _concat_dense),
+    the float32 carry meets the bf16 gates in ``f c`` and ``o tanh(c')``,
+    so the new carry is float32.
+
+    ``encode`` (the embeds) does not depend on the carry and ``step`` (the
+    cell and the heads) is the rest, so that a replay can embed a whole
+    sequence in one pass.  The partner and road blocks are unfused, as in
+    the JAX policy: ``fused_embed`` and ``embed_remat`` are refused.
+    Weights are drawn from ``generator`` with flax's initializers (Dense
+    kernels lecun normal, the recurrent kernels orthogonal per gate, the
+    actor orthogonal 0.01 and the critic 1.0, zero biases)."""
+
+    def __init__(self, config: PolicyConfig = PolicyConfig(),
+                 lstm_hidden: int = 128, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cfg = config
+        if cfg.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, "
+                             f"got {cfg.dtype}")
+        if cfg.fused_embed or cfg.embed_remat:
+            raise ValueError("the LSTM policy embeds unfused, as the JAX "
+                             "package's: fused_embed and embed_remat are off")
+        self.bf16 = cfg.dtype == torch.bfloat16
+        self.config = cfg
+        self.lstm_hidden = H = lstm_hidden
+        d = cfg.input_dim
+        self.ego_embed = _embed(cfg.ego_feat_dim, d, cfg.act_func)
+        self.partner_embed = _embed(C.PARTNER_FEAT_DIM, d, cfg.act_func)
+        self.road_map_embed = _embed(C.ROAD_GRAPH_FEAT_DIM, d, cfg.act_func)
+        self.lstm_i = nn.Linear(3 * d, 4 * H, bias=False)
+        self.lstm_h = nn.Linear(H, 4 * H)
+        self.actor = nn.Linear(H, cfg.action_dim)
+        self.critic = nn.Linear(H, 1)
+        with torch.no_grad():
+            for name, m in self.named_modules():
+                if isinstance(m, nn.Linear) and m.bias is not None:
+                    nn.init.zeros_(m.bias)
+                if name in ("actor", "critic"):
+                    nn.init.orthogonal_(m.weight, 0.01 if name == "actor"
+                                        else 1.0, generator=generator)
+                elif name == "lstm_h":
+                    for gate in m.weight.split(H):
+                        nn.init.orthogonal_(gate, generator=generator)
+                elif name == "lstm_i":
+                    for gate in m.weight.split(H):
+                        lecun_normal_(gate, generator)
+                elif isinstance(m, nn.Linear):
+                    lecun_normal_(m.weight, generator)
+        self.to(resolve_device(device))
+
+    def initialize_carry(self, batch_shape) -> tuple:
+        """Zero (c, h), float32 [*batch_shape, lstm_hidden]."""
+        h = torch.zeros(tuple(batch_shape) + (self.lstm_hidden,),
+                        device=self.actor.weight.device)
+        return (h, h.clone())
+
+    def encode(self, obs: torch.Tensor) -> torch.Tensor:
+        """obs [..., obs_dim] -> the embeds side by side [..., 3 * input_dim]
+        (bf16 with the bf16 dtype)."""
+        cfg = self.config
+        e = cfg.ego_feat_dim
+        p = (cfg.max_agents - 1) * C.PARTNER_FEAT_DIM
+        ego = obs[..., :e]
+        partner = obs[..., e:e + p].unflatten(
+            -1, (cfg.max_agents - 1, C.PARTNER_FEAT_DIM))
+        road = obs[..., e + p:].unflatten(
+            -1, (cfg.top_k_roads, C.ROAD_GRAPH_FEAT_DIM))
+        if self.bf16:
+            return torch.cat([_embed_bf16(self.ego_embed, ego),
+                              _embed_max_bf16(self.partner_embed, partner),
+                              _embed_max_bf16(self.road_map_embed, road)], -1)
+        return torch.cat([self.ego_embed(ego),
+                          _embed_max(self.partner_embed, partner),
+                          _embed_max(self.road_map_embed, road)], -1)
+
+    def step(self, feats: torch.Tensor, carry: tuple, done=None):
+        """The cell and the heads on ``encode``'s output: (carry, logits
+        [..., action_dim], value [...]), logits and value float32."""
+        c, h = carry
+        if done is not None:
+            m = (1.0 - done)[..., None]
+            c, h = c * m, h * m
+        if self.bf16:
+            bf = torch.bfloat16
+            gates = (_dense_bf16(self.lstm_h, h)
+                     + torch.matmul(feats.to(bf), self.lstm_i.weight.t().to(bf)))
+        else:
+            gates = self.lstm_h(h) + self.lstm_i(feats)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        if self.bf16:
+            logits = _dense_bf16(self.actor, h).float()
+            value = _dense_bf16(self.critic, h).float()[..., 0]
+        else:
+            logits = self.actor(h)
+            value = self.critic(h)[..., 0]
+        return (c, h), logits, value
+
+    def forward(self, obs: torch.Tensor, carry: tuple, done=None):
+        return self.step(self.encode(obs), carry, done)
 
 
 def sample_logits(generator: torch.Generator | None, logits: torch.Tensor,

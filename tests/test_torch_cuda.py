@@ -680,3 +680,181 @@ def test_wrapper_refuses_mixed_devices(dev):
     agents, roads = _features(np.random.default_rng(0), 1, 16, 8)
     with pytest.raises(ValueError):
         kernels.agent_road_hits_dense(agents.to(dev), roads)
+
+
+def _rnn_trainers(dev, n_worlds=4, T=8):
+    """The recurrent trainer in the flat layout on the card and on the CPU
+    over the same pool worlds, with the same weights."""
+    from gpudrive_lab_torch.networks.late_fusion import (
+        LateFusionLSTMPolicy,
+        PolicyConfig,
+    )
+    from gpudrive_lab_torch.ppo.ppo import PPOConfig
+    from gpudrive_lab_torch.ppo.ppo_rnn import RnnPPO
+    from gpudrive_lab_torch.rollout import pool_scene_paths, slice_env
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = []
+    for device in (dev, torch.device("cpu")):
+        env = slice_env(pool_scene_paths(root)[:n_worlds], device=device)
+        n = int(env.scene.agents.controlled.sum())
+        cfg = PPOConfig(rollout_len=T, update_epochs=2, num_minibatches=2,
+                        compact=-(-n // 64) * 64, compact_mode="flat")
+        pol = LateFusionLSTMPolicy(PolicyConfig(), device=device,
+                                   generator=torch.Generator().manual_seed(0))
+        out.append((env, RnnPPO(pol, env.params, env.spec, env.action_keys,
+                                env.config.reward_type, cfg)))
+    return out
+
+
+def test_lstm_policy_step_on_card_matches_cpu(dev):
+    """The LSTM policy step (default widths, lstm_hidden 128) on 512 rows
+    from a random carry, some rows reset: logits, value and both carries
+    within 1e-4 of the CPU's."""
+    from gpudrive_lab_torch.networks.late_fusion import (
+        LateFusionLSTMPolicy,
+        PolicyConfig,
+    )
+
+    rng = np.random.default_rng(0)
+    obs = torch.from_numpy(rng.standard_normal((512, 3368)).astype(
+        np.float32))
+    carry = tuple(torch.from_numpy(x) for x in (
+        0.5 * rng.standard_normal((2, 512, 128))).astype(np.float32))
+    done = torch.from_numpy((rng.random(512) < 0.2).astype(np.float32))
+    outs = []
+    for device in (dev, "cpu"):
+        pol = LateFusionLSTMPolicy(PolicyConfig(), device=device,
+                                   generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            (c, h), logits, value = pol(obs.to(device),
+                                        tuple(x.to(device) for x in carry),
+                                        done.to(device))
+        outs.append([t.cpu() for t in (c, h, logits, value)])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_rnn_update_on_card_matches_cpu(dev):
+    """One recurrent rollout (the same actions) and update (the same
+    minibatch order) in the flat layout on 4 pool worlds, card against
+    CPU: the trajectory's rewards, dones and masks equal, values within
+    1e-4, the losses within 1e-4 and every parameter within 2 lr per
+    Adam step (the most a sign flip of a near-zero gradient can move an
+    entry apart).  The rollout launches K2 once per step."""
+    (genv, grnn), (cenv, crnn) = _rnn_trainers(dev)
+    T = grnn.config.rollout_len
+    rows = grnn.config.compact
+    actions = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 91, (T, rows)))
+    perms = [torch.randperm(rows, generator=torch.Generator().manual_seed(e))
+             .reshape(2, rows // 2).tolist() for e in range(2)]
+    from gpudrive_lab_torch.core import step as stepmod
+    from gpudrive_lab_torch.ppo.ppo_rnn import start_carry
+
+    res = []
+    for env, rnn in ((genv, grnn), (cenv, crnn)):
+        fresh = stepmod.reset(env.scene, None, env.params)
+        carry = start_carry(rnn, env.scene, fresh, env.world_time_steps,
+                            torch.Generator(device=env.device).manual_seed(0))
+        n2 = kernels.agent_road_hits_dense.launches
+        carry2, traj = rnn.rollout(env.scene, carry, fresh,
+                                   env.reward_weights,
+                                   actions=actions.to(env.device))
+        launches = kernels.agent_road_hits_dense.launches - n2
+        m = rnn.update(env.scene, carry2, traj, env.reward_weights,
+                       carry.lstm, perms=perms)
+        res.append((traj, {k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in
+                     rnn.policy.state_dict().items()}, launches))
+    (gt, gm, gp, gl), (ct, cm, cp, _) = res
+    assert gl == T
+    for name in ("reward", "done", "mask", "reset_pre"):
+        assert torch.equal(getattr(gt, name).cpu(), getattr(ct, name)), name
+    torch.testing.assert_close(gt.value.cpu(), ct.value, rtol=0, atol=1e-4)
+    for k in ("pg_loss", "v_loss", "entropy", "approx_kl"):
+        assert abs(gm[k] - cm[k]) <= 1e-4, (k, gm[k], cm[k])
+    bar = 2 * grnn.config.learning_rate * 4
+    for k in gp:
+        assert float((gp[k] - cp[k]).abs().max()) <= bar, k
+
+
+def test_bc_net_and_step_on_card_match_cpu(dev):
+    """The BC net (default widths) on 64 rows, two with every partner
+    masked, card against CPU: context and GMM outputs within 1e-4,
+    recorded attention within 1e-5 (uniform on the masked rows); one AdamW
+    step: loss within 1e-4, parameters within 2 lr of each other."""
+    from gpudrive_lab_torch.il.networks import BCConfig, EarlyFusionAttnBCNet
+    from gpudrive_lab_torch.il.train import BCTrainConfig, make_bc_train_step
+
+    cfg = BCConfig(num_stack=2)
+    rng = np.random.default_rng(3)
+    batch = {
+        "obs": torch.from_numpy(rng.standard_normal(
+            (64, cfg.obs_dim)).astype(np.float32)),
+        "partner_mask": torch.from_numpy(rng.random((64, 127)) < 0.8),
+        "road_mask": torch.from_numpy(rng.random((64, 200)) < 0.5),
+        "actions": torch.from_numpy(rng.normal(
+            scale=0.5, size=(64, 1, 3)).astype(np.float32)),
+    }
+    batch["partner_mask"][:2] = True
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        net = EarlyFusionAttnBCNet(cfg, device=device,
+                                   generator=torch.Generator().manual_seed(4))
+        b = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            ctx, gmm, rec = net(b["obs"], b["partner_mask"],
+                                b["road_mask"], record=True)
+        _, step = make_bc_train_step(net, BCTrainConfig())
+        loss = step(b)
+        outs.append(dict(
+            ctx=ctx.cpu(), gmm=[g.cpu() for g in gmm],
+            attn={k: v.cpu() for k, v in rec["attn"].items()},
+            loss=float(loss),
+            params={k: v.detach().cpu() for k, v in
+                    net.state_dict().items()}))
+    g, c = outs
+    torch.testing.assert_close(g["ctx"], c["ctx"], rtol=0, atol=1e-4)
+    for a, b in zip(g["gmm"], c["gmm"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for k in c["attn"]:
+        torch.testing.assert_close(g["attn"][k], c["attn"][k], rtol=0,
+                                   atol=1e-5)
+    uniform = g["attn"]["ego_ro_cross.attn"][:2]
+    torch.testing.assert_close(uniform, torch.full_like(uniform, 1 / 127))
+    assert abs(g["loss"] - c["loss"]) <= 1e-4
+    for k in c["params"]:
+        assert float((g["params"][k] - c["params"][k]).abs().max()) \
+            <= 2 * 3e-4, k
+
+
+def test_il_data_generation_on_card_matches_cpu(dev):
+    """Expert data of 2 pool worlds on the card against the CPU: masks,
+    actions and action indices equal, positions within 1e-3; K2 launches
+    on every replay step."""
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.il.data_generation import (
+        generate_state_action_pairs,
+    )
+    from gpudrive_lab_torch.rollout import pool_scene_paths
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = EnvConfig(dynamics_model="delta_local",
+                    collision_behavior="ignore", max_controlled_agents=0)
+    out = []
+    for device in (dev, "cpu"):
+        env = GPUDriveTorchEnv(cfg, pool_scene_paths(root)[:2],
+                               device=device)
+        n2 = kernels.agent_road_hits_dense.launches
+        data = generate_state_action_pairs(env)
+        out.append(({k: v.cpu() for k, v in data.items()},
+                    kernels.agent_road_hits_dense.launches - n2))
+    (g, launches), (c, _) = out
+    assert launches >= 91
+    for k in ("dead_mask", "partner_mask", "road_mask", "actions",
+              "action_idx", "controlled_mask", "valid_mask"):
+        assert torch.equal(g[k], c[k]), k
+    torch.testing.assert_close(g["positions"], c["positions"], rtol=0,
+                               atol=1e-3)

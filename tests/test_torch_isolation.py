@@ -34,7 +34,7 @@ def test_importing_every_module_loads_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 55  # every module was imported
+    assert int(out.stdout.split()[0]) >= 65  # every module was imported
 
 
 def test_walk_covers_the_dataset_slice():
@@ -50,6 +50,21 @@ def test_walk_covers_the_dataset_slice():
                  "agents.policy_actor", "utils.evaluation",
                  "utils.multi_policy_rollout", "env.wrappers.sb3_wrapper",
                  "env.wrappers.sb3_learner", "env.wrappers.marl_wrapper"):
+        assert "gpudrive_lab_torch." + name in mods, name
+
+
+def test_walk_covers_the_rnn_and_il_slice():
+    """The modules of the recurrent PPO and behavior-cloning paths are
+    among those imported."""
+    import pkgutil
+
+    import gpudrive_lab_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        gpudrive_lab_torch.__path__, "gpudrive_lab_torch.")}
+    for name in ("ppo.ppo_rnn", "ppo.train_rnn", "il.networks", "il.dataset",
+                 "il.data_generation", "il.train", "il.linear_probing",
+                 "il.analysis"):
         assert "gpudrive_lab_torch." + name in mods, name
 
 

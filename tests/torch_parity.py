@@ -25,7 +25,7 @@ from gpudrive_lab_tpu.scene import compiler as jcompiler
 from gpudrive_lab_torch.core import types as ttypes
 from gpudrive_lab_torch.networks.convert import (
     adam_state_from_optax,
-    params_from_flax,
+    params_fn_for,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -295,7 +295,7 @@ def assert_trainer_matches(ppo, jvars, jopt, tol=1e-4, loose=None):
     ``fraction`` of its entries (and at least one allowed) beyond tol, and
     none beyond ``atol``; each moment within ``moment_rel`` of its largest
     magnitude."""
-    want = params_from_flax(jvars)
+    want = params_fn_for(ppo.policy)(jvars)
     got = ppo.policy.state_dict()
     for k, v in want.items():
         a, b = got[k].numpy(), v.numpy()
