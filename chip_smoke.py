@@ -30,7 +30,12 @@ closed-loop evaluation, closed_loop_rollout with importance and tokens,
 the linear probes, the BC net on the card against the CPU) and the rnn
 phase (the recurrent PPO CLI on 512 worlds, 3 or more float32 iterations
 and one bf16, an LSTM step on the card against the CPU, one profiled
-iteration), checks the outputs, and prints:
+iteration) and the vbd phase (VBD diffusion sim agents on 64 worlds: the
+official model at full width, 50 diffusion steps, through
+set_vbd_trajectories; 91 env steps with the VBD obs and reward; the
+TPU-first denoiser, the three guided samplers and denoise_loss training;
+the full-width encoder and a denoise step against the CPU), checks the
+outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -50,8 +55,8 @@ iteration), checks the outputs, and prints:
     bound_by, library_ms; for K1 and K2 also wrapper_ms and their
     large-map reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
-    rollout; for every kernel its launches in the dataset, il and rnn
-    phases);
+    rollout; for every kernel its launches in the dataset, il, rnn and
+    vbd phases);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -1771,6 +1776,289 @@ def k4_against_plain(policy, obs, gen) -> float:
     return err
 
 
+# the vbd phase: diffusion sim agents at the official model's full width
+VBD_WORLDS = 64  # worlds of the env and of the official model's batch
+VBD_GUIDED_WORLDS = 4  # worlds of each guided sampler's run
+VBD_CPU_WORLDS = 2  # worlds whose encoder and denoise step meet the CPU's
+VBD_TRAIN_STEPS = 20  # Adam steps on denoise_loss
+
+
+class CallTimer:
+    """CUDA events around each call of the named callables while
+    installed: ``targets`` holds (name, owner, attribute); an instance
+    attribute set here is removed again on exit."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.marks = []
+
+    def __enter__(self):
+        import torch
+
+        self.saved = []
+        for name, owner, attr in self.targets:
+            orig = getattr(owner, attr)
+            own = attr in vars(owner)
+
+            def timed(*a, _f=orig, _n=name, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _f(*a, **k)
+                end.record()
+                self.marks.append((_n, start, end))
+                return out
+            setattr(owner, attr, timed)
+            self.saved.append((owner, attr, orig, own))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig, own in self.saved:
+            if own:
+                setattr(owner, attr, orig)
+            else:
+                delattr(owner, attr)
+
+    def totals(self) -> dict:
+        """{name: (ms summed over the calls, calls)}."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.marks:
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + a.elapsed_time(b), n + 1)
+        return out
+
+
+def vbd_phase(root: str, dev) -> dict:
+    """VBD diffusion sim agents on the card.  The env on the first
+    VBD_WORLDS pool_v3 worlds, 128 agent rows, use_vbd with vbd_in_obs and
+    the distance_to_vdb_trajs reward.  (1) set_vbd_trajectories with an
+    OfficialVBDSource at full width (OfficialVBDConfig(): 6 layers, 256
+    wide, 8 heads, 32 agents, 50 diffusion steps; seeded random weights):
+    the sample batch, the encode, the 50 denoise steps and the scatter
+    timed with CUDA events, peak memory beside the phase's reckoning;
+    (2) 91 env steps on expert actions with the VBD obs and reward, K2
+    against its plain version at the last state; (3) a VBDTrajectorySource
+    with VBDConfig() (10 steps); (4) one ctg, one waymo and one ibr run on
+    VBD_GUIDED_WORLDS worlds; (5) VBD_TRAIN_STEPS Adam steps on
+    denoise_loss (finite, falling); (6) on VBD_CPU_WORLDS worlds the
+    full-width encoder and one denoise step on the card against the same
+    functions on the CPU, TF32 off (1e-4 of the largest magnitude).  The
+    launch counts are set to 0 at the start; the check's launches are
+    left out.  Returns {launches, ...}."""
+    import torch
+
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.env_torch import (
+        GPUDriveTorchEnv,
+        expert_actions,
+    )
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG, pool_scene_paths
+    from gpudrive_lab_torch.vbd import guidance, integration
+    from gpudrive_lab_torch.vbd import guidance_metrics as gm
+    from gpudrive_lab_torch.vbd import model as vmodel
+    from gpudrive_lab_torch.vbd import model_official as vofficial
+    from gpudrive_lab_torch.vbd.data_utils import (
+        VBDSampleConfig,
+        official_inputs,
+        process_scenario_data,
+    )
+
+    W = VBD_WORLDS
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"[vbd] every time below on {card}")
+    set_counts(dict.fromkeys(counts(), 0))
+    results = {"card": card}
+    env = GPUDriveTorchEnv(EnvConfig(**dict(
+        SLICE_CONFIG, use_vbd=True, vbd_in_obs=True,
+        reward_type="distance_to_vdb_trajs")),
+        pool_scene_paths(root)[:W], device=dev)
+    A = env.max_agent_count
+    check(A == 128, f"vbd: {A} agent rows, expected 128")
+    ocfg = vofficial.OfficialVBDConfig()
+    sample = VBDSampleConfig(max_agents=ocfg.agents_len)
+    S = ocfg.agents_len + sample.max_polylines + 16
+    rel_gb = W * S * S * 256 * 4 / 1e9
+    print(f"[vbd] OfficialVBD at full width: {ocfg.encoder_layers} layers, "
+          f"256 wide, {ocfg.num_heads} heads, {ocfg.agents_len} agents, "
+          f"{ocfg.diffusion_steps} diffusion steps; {W} worlds, S = "
+          f"{ocfg.agents_len} + {sample.max_polylines} + 16 = {S} tokens; "
+          f"the relation encodings [{W}, {S}, {S}, 256] float32 {rel_gb:.2f}"
+          f" GB; reckoned peak about {4 * rel_gb:.1f} GB (the relation "
+          f"encoder's running sum, one MLP stage's input and output, and a "
+          f"copy of the relations for the relative terms)")
+    model = vofficial.OfficialVBD(
+        ocfg, device=dev, generator=torch.Generator().manual_seed(SEED)).eval()
+    source = integration.OfficialVBDSource(model, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    with CallTimer([("batch", integration, "process_scenario_data"),
+                    ("inputs", integration, "official_inputs"),
+                    ("encode", model, "encode"),
+                    ("denoise", model, "denoise"),
+                    ("scatter", integration, "scatter_trajectories")]) as ct:
+        t0 = time.time()
+        env.set_vbd_trajectories(source)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tot = ct.totals()
+    check(tot["denoise"][1] == ocfg.diffusion_steps,
+          f"vbd: {tot['denoise'][1]} denoise calls")
+    traj = env.vbd_trajectories
+    check(tuple(traj.shape) == (W, A, 91, 5) and bool(
+        torch.isfinite(traj).all()), "vbd: official trajectories")
+    rows = int((traj.abs().sum((-1, -2)) > 0).sum())
+    check(rows > 0, "vbd: no agent row was predicted")
+    results["official"] = dict(
+        wall_s=wall, peak_gb=peak, base_gb=base, reckoned_gb=4 * rel_gb,
+        **{f"{k}_ms": v[0] for k, v in tot.items()},
+        denoise_step_ms=tot["denoise"][0] / tot["denoise"][1], rows=rows)
+    print(f"[vbd] OfficialVBDSource on {W} worlds: sample batch "
+          f"{tot['batch'][0]:.1f} ms (host), inputs and relations "
+          f"{tot['inputs'][0]:.1f} ms, encode {tot['encode'][0]:.1f} ms, "
+          f"{tot['denoise'][1]} denoise steps {tot['denoise'][0]:.1f} ms "
+          f"({results['official']['denoise_step_ms']:.2f} ms a step), "
+          f"scatter {tot['scatter'][0]:.3f} ms (CUDA events); wall "
+          f"{wall:.2f} s; peak memory {peak:.2f} GB ({base:.2f} GB held "
+          f"before; reckoned {4 * rel_gb:.1f}); {rows} agent rows predicted")
+
+    # (2) 91 env steps on expert actions with the VBD obs and reward
+    acts = expert_actions(env.scene, "classic")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for t in range(STEPS):
+        env.step_dynamics(acts[:, :, t])
+        obs = env.get_obs()
+        rew = env.get_rewards()
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3 / STEPS
+    check(tuple(obs.shape) == (W, A, 3368 + 455), f"vbd obs {obs.shape}")
+    check(bool(torch.isfinite(obs).all() and torch.isfinite(rew).all()),
+          "vbd: obs or rewards not finite")
+    results["env_step_ms"] = step_ms
+    print(f"[vbd] {STEPS} expert steps with the VBD obs and reward: "
+          f"{step_ms:.3f} ms a step (step, obs, reward; host clock); reward "
+          f"sum at the last step {float(rew.sum()):.3f}")
+    results["launches"] = counts()
+    uncounted(lambda: k2_against_plain(env, "at the vbd env's last state",
+                                       "[vbd]"))
+
+    # (3) the TPU-first denoiser at VBDConfig() defaults
+    vcfg = vmodel.VBDConfig()
+    vbd = vmodel.VBDModel(vcfg, device=dev,
+                          generator=torch.Generator().manual_seed(SEED))
+    vbd.eval()
+    src = integration.VBDTrajectorySource(
+        vbd, vmodel.DDPMScheduler(vcfg.diffusion_steps), vcfg, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    env.set_vbd_trajectories(src)
+    torch.cuda.synchronize()
+    results["vbd_source_s"] = time.time() - t0
+    check(bool(torch.isfinite(env.vbd_trajectories).all()),
+          "vbd: VBDTrajectorySource trajectories not finite")
+    print(f"[vbd] VBDTrajectorySource (VBDConfig(): {vcfg.encoder_layers} "
+          f"layers, {vcfg.hidden_dim} wide, {vcfg.diffusion_steps} steps) "
+          f"on {W} worlds: {results['vbd_source_s']:.3f} s")
+
+    # (4) the guided samplers on a few worlds
+    batch = process_scenario_data(env.scene, env.state, 0,
+                                  VBDSampleConfig(max_agents=vcfg.agents_len))
+    small = {k: v[:VBD_GUIDED_WORLDS] for k, v in batch.items()}
+    ids = small["agents_id"].long().clamp(min=0)
+    goals = torch.gather(
+        env.scene.agents.traj_pos[:VBD_GUIDED_WORLDS, :, vcfg.future_len],
+        1, ids[..., None].expand(-1, -1, 2))
+    sched = vmodel.DDPMScheduler(vcfg.diffusion_steps)
+    results["guided_s"] = {}
+    for mode, kw in (
+            ("ctg", dict(guidance=[guidance.goal_guidance(goals),
+                                   guidance.collision_guidance()],
+                         guidance_iter=2)),
+            ("waymo", dict(rewards=[gm.overlap_reward(), gm.onroad_reward()],
+                           guidance_iter=2)),
+            ("ibr", dict(ego_idx=0, adv_idx=1, ego_iter=2, adv_iter=2,
+                         guidance_iter=2))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = guidance.GUIDANCE_MODES[mode](
+            vbd, sched, small, vcfg,
+            torch.Generator(dev).manual_seed(SEED), **kw)
+        torch.cuda.synchronize()
+        results["guided_s"][mode] = time.time() - t0
+        check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+              f"vbd: the {mode} sampler's output is not finite")
+        print(f"[vbd] {mode} guided sampling on {VBD_GUIDED_WORLDS} worlds, "
+              f"{vcfg.diffusion_steps} steps, {kw.get('guidance_iter')} "
+              f"guidance iterations: {results['guided_s'][mode]:.3f} s")
+
+    # (5) denoise_loss with Adam: the log's future as ground truth
+    ag = env.scene.agents
+    ids = batch["agents_id"].long().clamp(min=0)
+    fut = torch.cat([ag.traj_pos, ag.traj_yaw[..., None], ag.traj_vel], -1)
+    fut = torch.gather(fut[:, :, 1:vcfg.future_len + 1], 1, ids[
+        ..., None, None].expand(-1, -1, vcfg.future_len, 5))
+    gt = vmodel.inverse_roll_out(fut, vmodel.current_states(
+        batch, vcfg.agents_len), action_len=vcfg.action_len)
+    vbd.train()
+    opt = torch.optim.Adam(vbd.parameters(), lr=1e-3)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    losses = []
+    t0 = time.time()
+    for _ in range(VBD_TRAIN_STEPS):
+        loss = vmodel.denoise_loss(vbd, sched, batch, gt, vcfg, gen)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    train_s = time.time() - t0
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(all(torch.isfinite(torch.tensor(losses))) and last < first,
+          f"vbd: denoise_loss did not fall: {losses}")
+    results["train"] = dict(losses=losses, s=train_s)
+    print(f"[vbd] {VBD_TRAIN_STEPS} Adam steps on denoise_loss ({W} worlds, "
+          f"VBDConfig()): loss {losses[0]:.4f} -> {losses[-1]:.4f} (means of "
+          f"the first and last 5: {first:.4f}, {last:.4f}); {train_s:.2f} s")
+
+    # (6) the full-width encoder and one denoise step, card against CPU
+    n = VBD_CPU_WORLDS
+    inputs = official_inputs({k: v[:n] for k, v in batch.items()})
+    cpu = vofficial.OfficialVBD(ocfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.randn((n, ocfg.agents_len, ocfg.seq_len, 2),
+                    generator=torch.Generator().manual_seed(SEED))
+    step = torch.full((n, ocfg.agents_len), ocfg.diffusion_steps - 1)
+    outs = []
+    for m, d in ((model, dev), (cpu, torch.device("cpu"))):
+        with torch.no_grad():
+            enc = m.encode({k: v.to(d) for k, v in inputs.items()})
+            den = m.denoise(enc, x.to(d), step.to(d))
+        outs.append({"encodings": enc["encodings"].cpu(),
+                     "relation_encodings": enc["relation_encodings"].cpu(),
+                     "denoise": den.cpu()})
+    errs = {k: float((outs[0][k] - v).abs().max() / v.abs().max())
+            for k, v in outs[1].items()}
+    results["cpu_err"] = errs
+    check(max(errs.values()) <= 1e-4, f"vbd: the card differs from the CPU: "
+          f"{errs}")
+    print(f"[vbd] full-width encoder and one denoise step on {n} worlds, "
+          f"card against CPU (TF32 off): max |diff| / max |CPU| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + " (bar 1e-4)")
+    launches = results["launches"]
+    print(f"[vbd] launches in the phase: {launches}")
+    check(launches["K2"] > 0, "the vbd phase did not launch K2")
+    for k in ("K1", "K3", "K4", "K3-bf16", "K4-bf16"):
+        check(launches[k] == 0, f"the vbd phase launched {k}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2152,10 +2440,13 @@ def main() -> int:
     il = il_phase(root, dev)
     # ---- the rnn phase: recurrent PPO (its profiled iteration last) --------
     rnn = rnn_phase(root, dev)
+    # ---- the vbd phase: diffusion sim agents at the official width ---------
+    vbd = vbd_phase(root, dev)
     for key, rec in results.items():
         base = key.split(",")[0]
         rec["il_launches"] = il["launches"][base]
         rec["rnn_launches"] = rnn["launches"][base]
+        rec["vbd_launches"] = vbd["launches"][base]
 
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
@@ -2194,7 +2485,7 @@ def main() -> int:
         line["kernels"][-1].update({k: r[k] for k in (
             "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
             "sensor_launches", "dataset_launches", "il_launches",
-            "rnn_launches", "bar_readings")
+            "rnn_launches", "vbd_launches", "bar_readings")
             if k in r})
     print(json.dumps(line))
     print(card)

@@ -1,10 +1,10 @@
 """Environment configuration (port of ``gpudrive_lab_tpu/env/config.py``).
 
 ``EnvConfig`` holds the options of the reference's env config (reference:
-gpudrive/env/config.py) that the port reads, or refuses when set (VBD).
-The other options (rendering, road-graph sizes, VBD weights) arrive with
-the code that reads them.  Action grids are numpy and become lookup-table
-tensors inside the env.  ``SceneConfig`` and ``SelectionDiscipline`` drive
+gpudrive/env/config.py) that the port reads.  The other options
+(rendering, road-graph sizes) arrive with the code that reads them.
+Action grids are numpy and become lookup-table tensors inside the env.
+``SceneConfig`` and ``SelectionDiscipline`` drive
 ``env/dataset.select_scenes``.
 """
 
@@ -89,7 +89,8 @@ class EnvConfig:
     init_steps: int = 0
 
     reward_type: str = "sparse_on_goal_achieved"
-    # also: weighted_combination | distance_to_logs | reward_conditioned
+    # also: weighted_combination | distance_to_logs | reward_conditioned |
+    # distance_to_vdb_trajs
     # reward_conditioned: per-agent (collision, goal, off_road) weights,
     # drawn at every reset within these bounds (condition_mode "random"),
     # scaled from them by a named profile ("preset") or given ("fixed"),
@@ -114,9 +115,17 @@ class EnvConfig:
     init_mode: str = "all_non_trivial"
     # all_non_trivial | all_objects | all_valid | womd_tracks_to_predict
 
-    # VBD (diffusion sim agents, reference: gpudrive/env/config.py:142-147)
-    # is not ported: the env refuses use_vbd=True.
+    # VBD (diffusion sim agents, reference: gpudrive/env/config.py:142-147):
+    # with use_vbd and vbd_in_obs the 455-float VBD block follows each
+    # frame's observation; reward_type "distance_to_vdb_trajs" adds
+    # vbd_trajectory_weight * exp(-distance to the predicted position).
+    # vbd_model_path names a checkpoint for the caller to load
+    # (vbd.integration.OfficialVBDSource.from_checkpoint); the env, like
+    # the JAX env, does not read it.
     use_vbd: bool = False
+    vbd_model_path: Optional[str] = None
+    vbd_trajectory_weight: float = 0.01
+    vbd_in_obs: bool = False
 
     # Collision and road-selection options of the JAX package.  The grid
     # and collision_top_k branches are not ported and raise; approx_top_k

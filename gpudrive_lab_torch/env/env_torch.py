@@ -16,8 +16,12 @@ The worlds come from ``scene_paths`` or from a ``data_loader``
 the current one.  Reward conditioning (``reward_type="reward_conditioned"``)
 draws the per-agent weights on the host from ``np.random.default_rng(
 config.seed)``, the JAX env's generator, so both envs draw the same weights
-(and the same agents for ``remove_agents_by_id``).  VBD is not ported yet
-and raises; so do ``vis`` and ``render`` (ROADMAP Queue A item 6).
+(and the same agents for ``remove_agents_by_id``).  With ``use_vbd`` and
+``vbd_in_obs`` each frame's observation ends with the 455-float VBD block
+(vbd/integration.py) of the trajectories that ``set_vbd_trajectories``
+installed, the logged ones until then; ``reward_type=
+"distance_to_vdb_trajs"`` adds the VBD distance bonus to the weighted
+combination.  ``vis`` and ``render`` raise (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -38,6 +42,12 @@ from gpudrive_lab_torch.core.types import Params, Scene, SimState
 from gpudrive_lab_torch.env.config import EnvConfig
 from gpudrive_lab_torch.env.dataset import SceneDataLoader
 from gpudrive_lab_torch.scene.compiler import build_scene
+from gpudrive_lab_torch.vbd.integration import (
+    VBD_OBS_DIM,
+    egocentric_vbd_obs,
+    log_replay_trajectories,
+    vbd_distance_reward,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,17 +284,6 @@ class GPUDriveTorchEnv:
         device=None,
         data_loader: Optional[SceneDataLoader] = None,
     ):
-        unsupported = [
-            name for name, on in (
-                ("use_vbd", config.use_vbd),
-                ("distance_to_vdb_trajs",
-                 config.reward_type == "distance_to_vdb_trajs"),
-            ) if on
-        ]
-        if unsupported:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(unsupported)}"
-            )
         self.config = config
         self.params = config.sim_params()
         self.data_loader = data_loader
@@ -314,7 +313,13 @@ class GPUDriveTorchEnv:
             norm_obs=config.norm_obs,
             reward_conditioned=config.reward_type == "reward_conditioned",
         )
-        self.observation_dim = self.spec.obs_dim * config.num_stack
+        # VBD (env_jax.py:412-421): predicted global trajectories
+        # [W, A, T, 5], installed by set_vbd_trajectories
+        self.vbd_trajectories: Optional[torch.Tensor] = None
+        self._vbd_obs_dim = (VBD_OBS_DIM if config.use_vbd
+                             and config.vbd_in_obs else 0)
+        self.observation_dim = ((self.spec.obs_dim + self._vbd_obs_dim)
+                                * config.num_stack)
         self._build_action_table()
         self._build_spaces()
 
@@ -535,14 +540,33 @@ class GPUDriveTorchEnv:
                             dim=-1)
         return act
 
+    def set_vbd_trajectories(self, source_or_array):
+        """Install predicted trajectories: a [W, A, T, 5] array, or a
+        TrajectorySource called on the current scene and state (see
+        gpudrive_lab_torch.vbd.integration; env_jax.py:621-627)."""
+        if callable(source_or_array):
+            self.vbd_trajectories = source_or_array(self.scene, self.state)
+        else:
+            self.vbd_trajectories = torch.as_tensor(
+                source_or_array, dtype=torch.float32, device=self.device)
+
     def get_obs(self, reset: bool = False) -> torch.Tensor:
-        """The flat observation [W, A, D]; with ``num_stack`` n > 1 the last
-        n of them side by side [W, A, n * D], oldest first, the stack
-        zeroed when ``reset`` (env_jax.py:629-657)."""
+        """The flat observation [W, A, D], the VBD block last when it is
+        on; with ``num_stack`` n > 1 the last n of them side by side
+        [W, A, n * D], oldest first, the stack zeroed when ``reset``
+        (env_jax.py:629-657)."""
         obs, self.partner_mask, self.road_mask = flat_observation(
             self.scene, self.state, self.params, self.spec,
             self.reward_weights,
         )
+        if self._vbd_obs_dim:
+            if self.vbd_trajectories is None:
+                # the logged trajectories until a source is installed
+                self.vbd_trajectories = log_replay_trajectories(
+                    self.scene, self.state)
+            obs = torch.cat(
+                [obs, egocentric_vbd_obs(self.state, self.vbd_trajectories)],
+                dim=-1)
         n = self.config.num_stack
         if n > 1:
             if reset or self.stacked_obs is None:
@@ -554,6 +578,17 @@ class GPUDriveTorchEnv:
         return obs
 
     def get_rewards(self) -> torch.Tensor:
+        if self.config.reward_type == "distance_to_vdb_trajs":
+            # weighted_combination plus the VBD bonus (env_jax.py:659-676)
+            if self.vbd_trajectories is None:
+                raise ValueError("distance_to_vdb_trajs requires "
+                                 "set_vbd_trajectories()")
+            base = shaped_rewards(
+                self.scene, self.state, "weighted_combination",
+                self.reward_weights, self.world_time_steps)
+            return base + vbd_distance_reward(
+                self.state, self.vbd_trajectories, self.world_time_steps,
+                self.config.vbd_trajectory_weight)
         return shaped_rewards(
             self.scene, self.state, self.config.reward_type,
             self.reward_weights, self.world_time_steps,
@@ -688,12 +723,22 @@ class GPUDriveTorchEnv:
     def _set_scene(self, scene: Scene):
         """Install a recompiled scene and reset every world.  Fixed reward
         weights follow a change of the agent rows; conditioned ones are
-        drawn anew by the reset."""
+        drawn anew by the reset.  Installed VBD trajectories are kept, as
+        the JAX env keeps them (env_jax.py:750; set them again after a
+        swap); where the agent rows change they are cut to the new count
+        or padded with zero rows (the rows a source leaves to agents it
+        did not predict), where the JAX env fails to broadcast."""
         self.scene = scene
-        self.max_agent_count = int(scene.agents.valid.shape[1])
+        self.max_agent_count = A = int(scene.agents.valid.shape[1])
         if (self.config.reward_type != "reward_conditioned"
-                and self.reward_weights.shape[1] != self.max_agent_count):
+                and self.reward_weights.shape[1] != A):
             self.reward_weights = self._default_reward_weights()
+        traj = self.vbd_trajectories
+        if traj is not None and traj.shape[1] != A:
+            traj = traj[:, :A]
+            self.vbd_trajectories = torch.cat(
+                [traj, traj.new_zeros((traj.shape[0], A - traj.shape[1])
+                                      + traj.shape[2:])], dim=1)
         self.state = None
         self.reset()
 

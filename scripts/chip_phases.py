@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Run the il and rnn phases of chip_smoke.py alone, on one NVIDIA GPU.
+"""Run phases of chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 scripts/chip_phases.py
+    python3 scripts/chip_phases.py [il] [rnn] [vbd]
 
+With no argument it runs the il, rnn and vbd phases, in that order.
 Prints the card's name and power limit, the Python, torch and CUDA
 versions, each phase's lines and its wall time, and last the launch counts
-of both phases as one JSON line.  Exits non-zero when a check of a phase
+of the phases as one JSON line.  Exits non-zero when a check of a phase
 fails.  A quicker call than the whole chip_smoke.py when only these paths
 changed; its numbers differ from chip_smoke.py's, where the phases follow
 a torch.profiler session (after one, each launch costs the host more).
@@ -26,6 +27,13 @@ def main() -> int:
 
     import chip_smoke as cs
 
+    phases = {"il": cs.il_phase, "rnn": cs.rnn_phase, "vbd": cs.vbd_phase}
+    names = sys.argv[1:] or list(phases)
+    unknown = [n for n in names if n not in phases]
+    if unknown:
+        print(f"chip_phases: unknown phases {unknown}; choose from "
+              f"{list(phases)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_phases: CUDA is not available", file=sys.stderr)
         return 2
@@ -38,9 +46,9 @@ def main() -> int:
     dev = torch.device("cuda")
     launches = {}
     try:
-        for name, phase in (("il", cs.il_phase), ("rnn", cs.rnn_phase)):
+        for name in names:
             t0 = time.time()
-            launches[name] = phase(ROOT, dev)["launches"]
+            launches[name] = phases[name](ROOT, dev)["launches"]
             print(f"{name} phase {time.time() - t0:.1f} s")
     except cs.CheckFailed as e:
         print(f"chip_phases: FAILED: {e}", file=sys.stderr)

@@ -858,3 +858,103 @@ def test_il_data_generation_on_card_matches_cpu(dev):
         assert torch.equal(g[k], c[k]), k
     torch.testing.assert_close(g["positions"], c["positions"], rtol=0,
                                atol=1e-3)
+
+
+def _rel(got, want) -> float:
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def test_vbd_env_on_card_matches_cpu(dev):
+    """The VBD env of 2 pool worlds on the card against the CPU: an
+    OfficialVBDSource (1 layer, 3 diffusion steps, the same seeded weights
+    and given draws) within 1e-4 of the trajectories' largest magnitude,
+    then 5 steps with the VBD obs block and reward within 1e-4; K2 launches
+    on every step."""
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG, pool_scene_paths
+    from gpudrive_lab_torch.vbd.integration import OfficialVBDSource
+    from gpudrive_lab_torch.vbd.model_official import (
+        OfficialVBD,
+        OfficialVBDConfig,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = EnvConfig(**dict(SLICE_CONFIG, use_vbd=True, vbd_in_obs=True,
+                           reward_type="distance_to_vdb_trajs"))
+    ocfg = OfficialVBDConfig(encoder_layers=1, diffusion_steps=3)
+    rng = np.random.default_rng(0)
+    draws = [rng.standard_normal((2, 32, 16, 2)).astype(np.float32)
+             for _ in range(4)]
+    acts = rng.integers(0, 91, (5, 2, 128))
+    out = []
+    for device in (dev, "cpu"):
+        env = GPUDriveTorchEnv(cfg, pool_scene_paths(root)[:2],
+                               device=device)
+        model = OfficialVBD(ocfg, device=device, generator=torch.Generator()
+                            .manual_seed(0)).eval()
+        source = OfficialVBDSource(model)
+        source.noise = draws
+        env.set_vbd_trajectories(source)
+        n2 = kernels.agent_road_hits_dense.launches
+        obs, rew = [], []
+        for t in range(5):
+            env.step_dynamics(torch.from_numpy(acts[t]).to(device))
+            obs.append(env.get_obs()[..., -455:].cpu())
+            rew.append(env.get_rewards().cpu())
+        out.append((env.vbd_trajectories.cpu(), torch.stack(obs),
+                    torch.stack(rew), kernels.agent_road_hits_dense.launches
+                    - n2))
+    (gt, go, gr, launches), (ct, co, cr, _) = out
+    assert launches == 5
+    assert ct.abs().sum() > 0
+    assert _rel(gt, ct) <= 1e-4
+    assert _rel(go, co) <= 1e-4
+    torch.testing.assert_close(gr, cr, rtol=0, atol=1e-4)
+
+
+def test_vbd_guidance_and_loss_on_card_match_cpu(dev):
+    """The TPU-first VBD model (hidden 64) on the card against the CPU:
+    waymo-guided sampling with the same draws, and denoise_loss with its
+    gradient, within 1e-4 of the largest magnitude."""
+    from gpudrive_lab_torch.vbd import guidance, guidance_metrics as gm
+    from gpudrive_lab_torch.vbd import model as vmodel
+
+    cfg = vmodel.VBDConfig(future_len=20, agents_len=4, diffusion_steps=3,
+                           encoder_layers=1, hidden_dim=64, num_heads=4)
+    rng = np.random.default_rng(1)
+    batch = {"agents_history": rng.normal(size=(2, 4, 11, 8)) * 5,
+             "agents_id": np.tile(np.arange(4), (2, 1)),
+             "agents_interested": np.ones((2, 4), np.int32),
+             "polylines": rng.normal(size=(2, 6, 10, 5)) * 10}
+    batch["agents_history"][..., 5:7] = [4.5, 2.0]
+    batch["polylines"][..., 4] = 1
+    batch = {k: torch.from_numpy(np.asarray(v, np.float32 if v.dtype.kind
+                                            == "f" else v.dtype))
+             for k, v in batch.items()}
+    draws = [rng.standard_normal((2, 4, 4, 2)).astype(np.float32)
+             for _ in range(4)]
+    loss_draws = [rng.integers(0, 3, (2, 4)),
+                  rng.standard_normal((2, 4, 4, 2)).astype(np.float32)]
+    gt = torch.from_numpy(rng.normal(size=(2, 4, 4, 2)).astype(np.float32))
+    out = []
+    for device in (dev, "cpu"):
+        m = vmodel.VBDModel(cfg, device=device,
+                            generator=torch.Generator().manual_seed(2))
+        b = {k: v.to(device) for k, v in batch.items()}
+        res = guidance.sample_denoiser_waymo(
+            m, vmodel.DDPMScheduler(3), b, cfg, draws,
+            rewards=[gm.overlap_reward(clip=30.0), gm.onroad_reward()],
+            guidance_iter=2, gradient_scale=0.05)
+        loss = vmodel.denoise_loss(m, vmodel.DDPMScheduler(3), b,
+                                   gt.to(device), cfg, loss_draws)
+        loss.backward()
+        grads = torch.cat([p.grad.flatten().cpu() for p in m.parameters()
+                           if p.grad is not None])
+        out.append(({k: v.cpu() for k, v in res.items()}, loss.detach().cpu(),
+                    grads))
+    (g, gl, gg), (c, cl, cg) = out
+    for k in ("denoised_actions", "denoised_trajs", "reward_history"):
+        assert _rel(g[k], c[k]) <= 1e-4, k
+    assert _rel(gl, cl) <= 1e-4
+    assert _rel(gg, cg) <= 1e-4

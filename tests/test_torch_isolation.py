@@ -34,7 +34,7 @@ def test_importing_every_module_loads_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 65  # every module was imported
+    assert int(out.stdout.split()[0]) >= 74  # every module was imported
 
 
 def test_walk_covers_the_dataset_slice():
@@ -66,6 +66,19 @@ def test_walk_covers_the_rnn_and_il_slice():
                  "il.data_generation", "il.train", "il.linear_probing",
                  "il.analysis"):
         assert "gpudrive_lab_torch." + name in mods, name
+
+
+def test_walk_covers_the_vbd_slice():
+    """The VBD modules are among those imported."""
+    import pkgutil
+
+    import gpudrive_lab_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        gpudrive_lab_torch.__path__, "gpudrive_lab_torch.")}
+    for name in ("model", "model_official", "data_utils", "convert",
+                 "integration", "guidance_metrics", "ilq", "guidance"):
+        assert "gpudrive_lab_torch.vbd." + name in mods, name
 
 
 def _imported_roots(path):

@@ -53,6 +53,29 @@ def python_scene_compiler():
             jcompiler.compile_world.cache_clear()
 
 
+@contextlib.contextmanager
+def recorded_draws():
+    """The arrays that ``jax.random.normal`` and ``jax.random.randint``
+    return while the block runs, as numpy, in order: the draws a JAX
+    sampler took, to hand to the port's (``vbd.model.Draws``)."""
+    import jax
+
+    draws = []
+    real = {name: getattr(jax.random, name) for name in ("normal", "randint")}
+
+    def spy(name):
+        def fn(*a, **k):
+            x = real[name](*a, **k)
+            draws.append(np.asarray(x))
+            return x
+        return fn
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in real:
+            mp.setattr(jax.random, name, spy(name))
+        yield draws
+
+
 def jax_params(tparams: ttypes.Params) -> jtypes.Params:
     """The JAX Params with the same field values."""
     vals = {}
@@ -361,10 +384,14 @@ def _road_rows(road, road_mask):
     return np.concatenate([road, road_mask[..., None].astype(np.float32)], -1)
 
 
-def assert_obs_match(env, jenv, obs, jobs, ordered_roads=False):
+def assert_obs_match(env, jenv, obs, jobs, ordered_roads=False, tail=0):
     """Frame by frame (``num_stack`` frames, oldest first): the ego and
     partner blocks in order, the road rows as sets (with the road mask of
-    the newest frame beside them) unless ``ordered_roads``."""
+    the newest frame beside them) unless ``ordered_roads``, and the last
+    ``tail`` features of each frame (the VBD block) in order, within 1e-5
+    of the block's largest magnitude: its y = -sin * dx + cos * dy cancels
+    terms of tens of metres, so an element's float32 error is that of the
+    terms (XLA may fuse the multiply-adds), not of the element."""
     obs, jobs = obs.numpy(), np.asarray(jobs)
     assert obs.shape == jobs.shape
     spec = env.spec
@@ -381,6 +408,11 @@ def assert_obs_match(env, jenv, obs, jobs, ordered_roads=False):
     no_mask = np.zeros(obs.shape[:-1] + (C.MAX_AGENT_MAP_OBS,), bool)
     for i in range(n):
         got, want = frames[..., i, :], jframes[..., i, :]
+        if tail:
+            scale = max(1.0, float(np.abs(want[..., -tail:]).max()))
+            np.testing.assert_allclose(got[..., -tail:], want[..., -tail:],
+                                       rtol=0, atol=1e-5 * scale)
+            got, want = got[..., :-tail], want[..., :-tail]
         np.testing.assert_allclose(got[..., :head], want[..., :head],
                                    rtol=1e-5, atol=1e-5)
         if not spec.road_map_obs:
