@@ -34,8 +34,15 @@ iteration) and the vbd phase (VBD diffusion sim agents on 64 worlds: the
 official model at full width, 50 diffusion steps, through
 set_vbd_trajectories; 91 env steps with the VBD obs and reward; the
 TPU-first denoiser, the three guided samplers and denoise_loss training;
-the full-width encoder and a denoise step against the CPU), checks the
-outputs, and prints:
+the full-width encoder and a denoise step against the CPU) and the
+periphery phase (the versions of matplotlib, imageio, rich, yaml and
+safetensors; with matplotlib, worlds 0-3 of the 512 rendered on the card in
+2-D and 3-D and held against the host render of the same state; a seeded
+reference NeuralNet state dict through load_pretrained onto the card, 91
+argmax steps of it with fused_embed over the 512 worlds, its logits
+against the CPU, a utils/checkpoint round trip; the PPO CLI at 512 worlds
+with --fused-embed --dashboard and, with matplotlib, --video-interval 1),
+checks the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -55,8 +62,8 @@ outputs, and prints:
     bound_by, library_ms; for K1 and K2 also wrapper_ms and their
     large-map reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
-    rollout; for every kernel its launches in the dataset, il, rnn and
-    vbd phases);
+    rollout; for every kernel its launches in the dataset, il, rnn, vbd
+    and periphery phases);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -2059,6 +2066,419 @@ def vbd_phase(root: str, dev) -> dict:
     return results
 
 
+# the periphery phase: rendering, the reference-checkpoint loader, the CLI
+# with its video hook and dashboard
+PERIPHERY_WORLDS = 512  # worlds of the CLI's batches
+PERIPHERY_STEPS = 10  # expert steps before the frames are drawn
+PERIPHERY_RENDER_WORLDS = 4  # worlds drawn in 2-D and 3-D
+PERIPHERY_CPU_WORLDS = 4  # worlds whose step-0 logits meet the CPU's
+PERIPHERY_PACKAGES = (("matplotlib", "matplotlib"), ("imageio", "imageio"),
+                      ("rich", "rich"), ("yaml", "PyYAML"),
+                      ("safetensors", "safetensors"))
+
+
+def package_versions() -> dict:
+    """{module: its distribution's version, or "absent"}."""
+    import importlib.metadata
+    import importlib.util
+
+    out = {}
+    for mod, dist in PERIPHERY_PACKAGES:
+        if importlib.util.find_spec(mod) is None:
+            out[mod] = "absent"
+            continue
+        try:
+            out[mod] = importlib.metadata.version(dist)
+        except importlib.metadata.PackageNotFoundError:
+            out[mod] = "present"
+    return out
+
+
+def reference_state_dict(seed: int) -> dict:
+    """A seeded state dict in the reference NeuralNet layout at the
+    released policy's widths (the key set of
+    examples/09_pretrained_policy.py::synth_checkpoint: embeds 6/6/13 ->
+    64, shared 192 -> 128, 91 actions), made with torch."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def lin(o, i, name):
+        sd[f"{name}.weight"] = torch.randn((o, i), generator=g) / i ** 0.5
+        sd[f"{name}.bias"] = 0.1 * torch.randn(o, generator=g)
+
+    for name, ind in (("ego_embed", 6), ("partner_embed", 6),
+                      ("road_map_embed", 13)):
+        lin(64, ind, f"{name}.0")
+        sd[f"{name}.1.weight"] = 1 + 0.1 * torch.randn(64, generator=g)
+        sd[f"{name}.1.bias"] = 0.1 * torch.randn(64, generator=g)
+        lin(64, 64, f"{name}.4")
+    lin(128, 192, "shared_embed.0")
+    lin(91, 128, "actor")
+    lin(1, 128, "critic")
+    return sd
+
+
+def periphery_render(root: str, dev) -> dict:
+    """(b) The 512-world env on the card after PERIPHERY_STEPS expert steps:
+    worlds 0-3 rendered with env.render in 2-D and 3-D, each frame held
+    against the CPU visualizer's figure of the same scene and state copied
+    to the host (identical: the same floats through the same matplotlib
+    calls); ms per frame and the share of it in the state's
+    device-to-host copy; the fraction of pixels that differ from a CPU env
+    of the same worlds stepped on its own with the same actions (float32
+    ulps move anti-aliased edges; reported, not gated)."""
+    import numpy as np
+    import torch
+
+    from gpudrive_lab_torch.env.config import RenderConfig
+    from gpudrive_lab_torch.env.env_torch import expert_actions
+    from gpudrive_lab_torch.rollout import pool_scene_paths, slice_env
+    from gpudrive_lab_torch.visualize.core import (
+        MatplotlibVisualizer,
+        state_rows,
+    )
+
+    scenes = pool_scene_paths(root)
+    n = PERIPHERY_RENDER_WORLDS
+    env = slice_env(scenes, device=dev)
+    cenv = slice_env(scenes[:n], device="cpu")
+    acts = expert_actions(env.scene, "classic")
+    for t in range(PERIPHERY_STEPS):
+        env.step_dynamics(acts[:, :, t])
+        cenv.step_dynamics(acts[:n, :, t].cpu())
+    torch.cuda.synchronize()
+    # one config for the card's, the CPU env's and the host's visualizers
+    cfg = env.render_config = cenv.render_config = RenderConfig()
+    t0 = time.time()
+    env.vis  # the scene's host copies, once per scene
+    build_s = time.time() - t0
+    scene_h = take_worlds(env.scene, n, "cpu")
+    state_h = take_worlds(env.state, n, "cpu")
+    host = MatplotlibVisualizer(scene_h, cfg)
+    frame_s, copy_s, diff, frames = [], [], [], 0
+    for render_3d in (False, True):
+        cfg.render_3d = render_3d
+        for w in range(n):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state_rows(env.state, [w])
+            copy_s.append(time.time() - t0)
+            t0 = time.time()
+            got = env.render(w)
+            frame_s.append(time.time() - t0)
+            want = host.plot_simulator_state(state_h, [w])[0]
+            check(got.dtype == np.uint8 and got.ndim == 3
+                  and np.array_equal(got, want),
+                  f"periphery: the card's frame of world {w} (3-D "
+                  f"{render_3d}) differs from the host render of the same "
+                  f"state")
+            diff.append(float((got != cenv.render(w)).any(-1).mean()))
+            frames += 1
+    ms = sum(frame_s) / frames * 1e3
+    share = sum(copy_s) / sum(frame_s)
+    print(f"[periphery] render: {frames} frames of worlds 0-{n - 1} (2-D "
+          f"and 3-D, {got.shape[1]}x{got.shape[0]}) after "
+          f"{PERIPHERY_STEPS} expert steps on 512 worlds: each equal to the "
+          f"host render of the same state; {ms:.2f} ms a frame (host "
+          f"clock), {share:.4f} of it the state's device-to-host copy; the "
+          f"visualizer's scene copy {build_s * 1e3:.1f} ms once")
+    print(f"[periphery] render: pixels differing from a CPU env stepped on "
+          f"its own with the same actions, per frame: "
+          + ", ".join(f"{d:.2e}" for d in diff) + " (reported, not gated)")
+    return dict(frames=frames, ms_per_frame=ms, copy_share=share,
+                scene_copy_ms=build_s * 1e3, cpu_env_pixel_diff=diff)
+
+
+def periphery_checkpoint(root: str, dev, tmp: str, has_st: bool) -> dict:
+    """(c) A seeded reference state dict written as model.pt (and
+    model.safetensors where safetensors is present); load_pretrained(dir,
+    device=dev), the card, of each (equal tensors); the policy rebuilt with
+    fused_embed through dataclasses.replace; 91 argmax steps over the 512
+    worlds (K2, K3); the step-0 logits and values of PERIPHERY_CPU_WORLDS
+    worlds against the same weights on the CPU (plain embed), within the
+    1e-4 of phase 3's K3 bar; the policy saved and loaded through
+    utils/checkpoint with its sidecar, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from gpudrive_lab_torch.networks.convert import load_pretrained
+    from gpudrive_lab_torch.networks.late_fusion import LateFusionPolicy
+    from gpudrive_lab_torch.rollout import (
+        pool_scene_paths,
+        rollout,
+        slice_env,
+    )
+    from gpudrive_lab_torch.utils import checkpoint
+
+    sd = reference_state_dict(SEED)
+    dirs = {"pt": os.path.join(tmp, "pt")}
+    os.makedirs(dirs["pt"])
+    torch.save(sd, os.path.join(dirs["pt"], "model.pt"))
+    if has_st:
+        from safetensors.torch import save_file
+
+        dirs["safetensors"] = os.path.join(tmp, "st")
+        os.makedirs(dirs["safetensors"])
+        save_file(sd, os.path.join(dirs["safetensors"], "model.safetensors"))
+    loaded = {}
+    for fmt, d in dirs.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        policy, cfg = load_pretrained(d, device=dev)
+        torch.cuda.synchronize()
+        loaded[fmt] = (policy, cfg, (time.time() - t0) * 1e3)
+        check(next(policy.parameters()).device.type == dev.type,
+              f"periphery: the {fmt} policy is not on the card")
+    policy, cfg, _ = loaded["pt"]
+    for fmt, (other, ocfg, _) in loaded.items():
+        check(ocfg == cfg and all(
+            torch.equal(v, other.state_dict()[k])
+            for k, v in policy.state_dict().items()),
+            f"periphery: the {fmt} checkpoint loads other weights")
+    fcfg = dataclasses.replace(cfg, fused_embed=True)
+    fused = LateFusionPolicy(fcfg, device=dev)
+    fused.load_state_dict(policy.state_dict())
+    print(f"[periphery] load_pretrained: {cfg}; "
+          + ", ".join(f"{fmt} {ms:.1f} ms" for fmt, (_, _, ms)
+                      in loaded.items()) + " (host clock, to the card)")
+
+    env = slice_env(pool_scene_paths(root), device=dev)
+    W, A = env.num_worlds, env.max_agent_count
+    n_agents = int(env.scene.num_agents.sum())
+    obs0 = env.get_obs()
+    cpu, _ = load_pretrained(dirs["pt"], device="cpu")
+    n = PERIPHERY_CPU_WORLDS
+
+    def against_cpu():
+        with torch.no_grad():
+            got = [t.cpu() for t in fused(obs0[:n])]
+            want = cpu(obs0[:n].cpu())
+        return [float((a - b).abs().max()) for a, b in zip(got, want)]
+
+    errs = uncounted(against_cpu)
+    check(max(errs) <= 1e-4, f"periphery: the card's step-0 logits/values "
+          f"differ from the CPU's by {errs}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = rollout(env, fused, STEPS, None, deterministic=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(bool(((res.actions >= 0) & (res.actions < 91)).all())
+          and bool(torch.isfinite(res.rewards).all()),
+          "periphery: the checkpoint policy's rollout is out of range")
+    check(bool(res.dones[-1][env.scene.agents.valid].all()),
+          "periphery: not every agent was done at the horizon")
+    print(f"[periphery] the checkpoint policy (fused_embed) on {W} worlds x "
+          f"{STEPS} argmax steps: {wall * 1e3 / STEPS:.3f} ms/step wall, "
+          f"agent-steps/s {STEPS * n_agents / wall:.1f}; step-0 logits and "
+          f"values of {n} worlds x {A} rows against the CPU (plain embed): "
+          f"max abs diff {errs[0]:.3g}, {errs[1]:.3g} (bar 1e-4)")
+
+    rounds = {}
+    for suffix, opt in ((".pt", torch.optim.Adam(fused.parameters())),
+                        (".safetensors", None)):
+        if suffix == ".safetensors" and not has_st:
+            continue
+        path = os.path.join(tmp, "policy" + suffix)
+        checkpoint.save_checkpoint(path, fused, opt, metadata=dict(
+            policy_config=fcfg, source="reference state dict, seed 0"))
+        back = checkpoint.load_checkpoint(path, map_location=dev)
+        meta = checkpoint.load_metadata(path)
+        same = all(torch.equal(back["state"][k], v)
+                   for k, v in fused.state_dict().items())
+        check(same and meta["policy_config"]["hidden_dim"] == 128
+              and meta["policy_config"]["fused_embed"] is True,
+              f"periphery: the {suffix} checkpoint does not round-trip")
+        rounds[suffix] = os.path.getsize(path)
+    print(f"[periphery] utils/checkpoint round trip with the sidecar, bit "
+          f"for bit: " + ", ".join(f"{k} {v} bytes"
+                                   for k, v in rounds.items()))
+    return dict(logits_err=errs[0], value_err=errs[1],
+                step_ms=wall * 1e3 / STEPS,
+                agent_steps_per_s=STEPS * n_agents / wall,
+                load_ms={k: v[2] for k, v in loaded.items()},
+                round_trip=sorted(rounds))
+
+
+def periphery_cli(root: str, dev, tmp: str, has_mpl: bool) -> dict:
+    """(d) ppo.train.main at 512 worlds with --fused-embed --dashboard (and
+    --video-interval 1 --video-worlds 1 where matplotlib is present) for 2
+    iterations (K2, K3, K4): the hook's 91-step video of world 0 after each
+    iteration, its seconds against the iterations', and the trainer's carry
+    handed to the next iteration as the last one left it.  Without
+    matplotlib, --video-interval must stop the CLI before any training."""
+    import torch
+
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.dataset import SceneDataLoader
+    from gpudrive_lab_torch.ppo import ppo as tppo
+    from gpudrive_lab_torch.ppo import train
+    from gpudrive_lab_torch.scene.compiler import compile_world
+
+    import numpy as np
+
+    pool = os.path.join(root, "data", "pool_v3")
+    W = PERIPHERY_WORLDS
+    params = EnvConfig(dynamics_model="classic",
+                       collision_behavior="ignore").sim_params()
+    batch = next(iter(SceneDataLoader(pool, W, 1000,
+                                      sample_with_replacement=True, seed=42)))
+    total = sum(int(compile_world(p, params, frozenset()).agent[
+        "controlled"].sum()) for p in batch)
+    compact = -(-total // 64) * 64
+    ckpt = os.path.join(tmp, "cli")
+    argv = ["--device", dev.type, "--data-dir", pool, "--num-worlds",
+            str(W), "--fused-embed", "--compact", str(compact),
+            "--compact-mode", "flat", "--rollout-len", "32",
+            "--update-epochs", "4", "--num-minibatches", "4",
+            "--total-timesteps", str(32 * total + 1), "--log-interval", "1",
+            "--dashboard", "--checkpoint-path", ckpt]
+    if not has_mpl:
+        before = counts()
+        try:
+            train.main(argv + ["--video-interval", "1"])
+        except ModuleNotFoundError as e:
+            check("matplotlib" in str(e) and counts() == before,
+                  f"periphery: --video-interval failed after training began "
+                  f"({e})")
+            print("[periphery] --video-interval without matplotlib stops "
+                  "the CLI before training (ModuleNotFoundError); the CLI "
+                  "runs below without it")
+        else:
+            raise CheckFailed("periphery: --video-interval ran without "
+                              "matplotlib")
+    else:
+        argv += ["--video-interval", "1", "--video-worlds", "1"]
+    from gpudrive_lab_torch.visualize import video
+
+    hook_s, carries = [], []
+    real_hook = video.render_training_videos
+    real_step = tppo.PPO.train_step
+
+    def timed_hook(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real_hook(*a, **k)
+        torch.cuda.synchronize()
+        hook_s.append(time.time() - t0)
+        return out
+
+    def snap(c):
+        return [c.state.pos.clone(), c.world_time_steps.clone(),
+                c.rng.get_state()]
+
+    def spy_step(self, scene, carry, *a, **k):
+        before = snap(carry)
+        out = real_step(self, scene, carry, *a, **k)
+        carries.append((carry, before, out[0], snap(out[0])))
+        return out
+
+    print("[periphery] ppo.train.main "
+          + " ".join("<tmp>" if a == ckpt else a for a in argv))
+    tppo.PPO.train_step = spy_step
+    if has_mpl:
+        video.render_training_videos = timed_hook
+    try:
+        with PhaseTimer() as timer:
+            t0 = time.time()
+            train.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.time() - t0
+    finally:
+        tppo.PPO.train_step = real_step
+        if has_mpl:
+            video.render_training_videos = real_hook
+    iters = timer.iterations()
+    with open(os.path.join(ckpt, "ppo.metrics.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    steps = [r for r in logs if "iteration" in r]
+    check(len(iters) == len(steps) >= 2 and all(
+        all(np.isfinite(r[k]) for k in ("pg_loss", "v_loss", "entropy"))
+        for r in steps), f"periphery: the CLI ran {len(iters)} iterations")
+    for (_, _, out, after), (nxt, before, _, _) in zip(carries, carries[1:]):
+        check(nxt is out and all(torch.equal(a, b)
+                                 for a, b in zip(after, before)),
+              "periphery: the carry changed between two iterations")
+    it_s = [sum(ph.values()) / 1e3 for ph in iters]
+    out = dict(iterations=len(iters), wall_s=cli_s, iteration_s=it_s,
+               hook_s=hook_s)
+    line = (f"[periphery] CLI: {len(iters)} iterations of "
+            + ", ".join(f"{s:.3f}" for s in it_s)
+            + " s (rollout + GAE + update, CUDA events)")
+    if has_mpl:
+        videos = sorted(os.listdir(os.path.join(ckpt, "videos")))
+        check(len(videos) == len(iters) == len(hook_s) and all(
+            v.startswith("world0_step") and v.endswith(".gif")
+            and os.path.getsize(os.path.join(ckpt, "videos", v)) > 0
+            for v in videos), f"periphery: videos {videos}")
+        line += (f"; the video hook (91 steps of world 0, {len(videos)} "
+                 f"GIFs) " + ", ".join(f"{s:.3f}" for s in hook_s)
+                 + " s (host clock), "
+                 f"{sum(hook_s) / sum(it_s):.2f}x the iterations' time")
+        out["videos"] = videos
+    else:
+        line += "; the video hook not run (matplotlib absent)"
+    print(line + f"; the carry handed on unchanged; {cli_s:.2f} s wall")
+    return out
+
+
+def periphery_phase(root: str, dev) -> dict:
+    """The periphery at full width (the phase-3 configuration: the 512
+    pool_v3 worlds, 128 agent rows, road bucket 256).  (a) the versions of
+    matplotlib, imageio, rich, yaml and safetensors on this machine; (b)
+    with matplotlib, rendering on the card (periphery_render); (c) the
+    reference-checkpoint loader (periphery_checkpoint); (d) the PPO CLI
+    with its video hook and dashboard (periphery_cli).  Without matplotlib
+    (b) and the hook's videos are left out and said so; (c) and (d) run
+    either way.  The launch counts are set to 0 at the start; the checks'
+    launches are left out.  Returns {launches, ...}."""
+    import tempfile
+
+    t0 = time.time()
+    versions = package_versions()
+    print("[periphery] packages: " + ", ".join(
+        f"{k} {v}" for k, v in versions.items()))
+    has_mpl = versions["matplotlib"] != "absent"
+    has_st = versions["safetensors"] != "absent"
+    if not has_mpl:
+        print("[periphery] matplotlib absent: figures held on the CPU only")
+    set_counts(dict.fromkeys(counts(), 0))
+    results = {"packages": versions}
+    if has_mpl:
+        results["render"] = periphery_render(root, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        results["checkpoint"] = periphery_checkpoint(root, dev, tmp, has_st)
+        if versions["yaml"] != "absent":
+            from gpudrive_lab_torch.utils.config import (
+                apply_overrides,
+                load_config,
+            )
+
+            path = os.path.join(tmp, "exp.yaml")
+            with open(path, "w") as f:
+                f.write("train:\n  lr: 0.0003\n")
+            cfg = apply_overrides(load_config(path), ["train.lr=0.001"])
+            check(cfg.train.lr == 0.001, "periphery: the yaml config")
+        print(f"[periphery] ran: the .pt round trip"
+              + (", the safetensors round trip" if has_st else "")
+              + (", the yaml config load" if versions["yaml"] != "absent"
+                 else ""))
+        results["cli"] = periphery_cli(root, dev, tmp, has_mpl)
+    launches = counts()
+    results["launches"] = launches
+    print(f"[periphery] launches in the phase: K2 {launches['K2']}, K3 "
+          f"{launches['K3']}, K4 {launches['K4']} (all: {launches}); the "
+          f"phase took {time.time() - t0:.1f} s")
+    check(launches["K2"] > 0 and launches["K3"] > 0 and launches["K4"] > 0,
+          "the periphery phase did not launch K2, K3 and K4")
+    for k in ("K1", "K3-bf16", "K4-bf16"):
+        check(launches[k] == 0, f"the periphery phase launched {k}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2442,11 +2862,15 @@ def main() -> int:
     rnn = rnn_phase(root, dev)
     # ---- the vbd phase: diffusion sim agents at the official width ---------
     vbd = vbd_phase(root, dev)
+    # ---- the periphery phase: rendering, reference checkpoints, the CLI's
+    # video hook and dashboard -----------------------------------------------
+    periphery = periphery_phase(root, dev)
     for key, rec in results.items():
         base = key.split(",")[0]
         rec["il_launches"] = il["launches"][base]
         rec["rnn_launches"] = rnn["launches"][base]
         rec["vbd_launches"] = vbd["launches"][base]
+        rec["periphery_launches"] = periphery["launches"][base]
 
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
@@ -2485,7 +2909,8 @@ def main() -> int:
         line["kernels"][-1].update({k: r[k] for k in (
             "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
             "sensor_launches", "dataset_launches", "il_launches",
-            "rnn_launches", "vbd_launches", "bar_readings")
+            "rnn_launches", "vbd_launches", "periphery_launches",
+            "bar_readings")
             if k in r})
     print(json.dumps(line))
     print(card)

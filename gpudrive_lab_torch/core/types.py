@@ -21,6 +21,9 @@ import enum
 
 import torch
 
+from gpudrive_lab_torch import constants as C
+from gpudrive_lab_torch.device import resolve_device
+
 
 class DynamicsModel(enum.IntEnum):
     """reference: src/init.hpp:97-103."""
@@ -212,3 +215,23 @@ class SimState(_TensorData):
     def speed(self) -> torch.Tensor:
         return vec_norm(self.vel)
 
+
+def zero_state(num_worlds: int, max_agents: int = C.MAX_AGENTS,
+               device=None) -> SimState:
+    """An all-zero SimState [num_worlds, max_agents] on ``device`` (CUDA
+    unless another is named): float32 kinematics, int32 flags."""
+    dev = resolve_device(device)
+    wa = (num_worlds, max_agents)
+
+    def f(*shape):
+        return torch.zeros(wa + shape, dtype=torch.float32, device=dev)
+
+    def i():
+        return torch.zeros(wa, dtype=torch.int32, device=dev)
+
+    return SimState(
+        pos=f(2), z=f(), yaw=f(), vel=f(2), ang_vel=f(),
+        collided=i(), done=i(), collided_road=i(), collided_vehicle=i(),
+        collided_non_vehicle=i(), reached_goal=i(), steps_remaining=i(),
+        reward=f(),
+    )

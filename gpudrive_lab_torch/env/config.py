@@ -1,11 +1,13 @@
 """Environment configuration (port of ``gpudrive_lab_tpu/env/config.py``).
 
-``EnvConfig`` holds the options of the reference's env config (reference:
-gpudrive/env/config.py) that the port reads.  The other options
-(rendering, road-graph sizes) arrive with the code that reads them.
-Action grids are numpy and become lookup-table tensors inside the env.
-``SceneConfig`` and ``SelectionDiscipline`` drive
-``env/dataset.select_scenes``.
+``EnvConfig`` holds every option of the JAX package's env config
+(reference: gpudrive/env/config.py), with the same defaults.  A few are
+stored and not read, as in the JAX package: the world count comes from the
+scenes (``num_worlds``) and the road-graph and episode sizes from the
+constants (each field's comment says so).  Action grids are numpy and
+become lookup-table tensors inside the env.  ``SceneConfig`` and
+``SelectionDiscipline`` drive ``env/dataset.select_scenes``;
+``RenderConfig`` configures the env's visualizer (``visualize/core.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -48,6 +50,9 @@ class EnvConfig:
     disable_classic_obs: bool = False
 
     max_controlled_agents: int = C.MAX_AGENTS
+    # Not read: the env's world count is len(scene_paths) or the data
+    # loader's batch size, as in the JAX env.
+    num_worlds: int = 1
 
     # Rays per lidar plane (reference: src/consts.hpp:37); read by
     # GPUDriveTorchEnv.get_lidar_obs.
@@ -105,12 +110,23 @@ class EnvConfig:
 
     dist_to_goal_threshold: float = 2.0
 
+    # Not read (as in the JAX package): the agent rows are C.MAX_AGENTS or
+    # the agent_bucket below.
+    max_num_agents_in_scene: int = C.MAX_AGENTS
     # Agent-axis bucketing (not in the reference): None keeps the fixed
     # kMaxAgentCount=128 rows; "auto" (or an int cap) shrinks the sim's
     # agent axis to the scene batch's max created-agent count rounded to 16.
     # The 3368-float flat obs (127 partner slots) is kept by feature
     # padding; env getters then return [W, A_bucket, ...] tensors.
     agent_bucket: int | str | None = None
+    # Not read (as in the JAX package): the road bucket comes from the
+    # scenes or the env's max_roads, the K of the road observation from
+    # C.MAX_AGENT_MAP_OBS, the episode length from C.EPISODE_LEN and the
+    # agent box scale from C.VEHICLE_LENGTH_SCALE.
+    max_num_rg_points: int = C.MAX_ROAD_ENTITIES
+    roadgraph_top_k: int = C.MAX_AGENT_MAP_OBS
+    episode_len: int = C.EPISODE_LEN
+    agent_size_scale: float = C.VEHICLE_LENGTH_SCALE
 
     init_mode: str = "all_non_trivial"
     # all_non_trivial | all_objects | all_valid | womd_tracks_to_predict
@@ -215,3 +231,21 @@ class SceneConfig:
     seed: Optional[int] = None
     start_idx: int = 0
     custom_idx: Optional[List[int]] = None
+
+
+class RenderMode(enum.Enum):
+    MATPLOTLIB = "matplotlib"
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    """reference: gpudrive/env/config.py:199-221.  ``render_3d`` and
+    ``vehicle_height`` are read by ``visualize/core.py``."""
+
+    render_mode: RenderMode = RenderMode.MATPLOTLIB
+    resolution: Tuple[int, int] = (1024, 1024)
+    draw_expert_trajectories: bool = False
+    draw_only_controllable_veh: bool = False
+    obj_idx_font_size: int = 9
+    render_3d: bool = False
+    vehicle_height: float = 0.06

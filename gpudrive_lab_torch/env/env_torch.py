@@ -21,7 +21,8 @@ config.seed)``, the JAX env's generator, so both envs draw the same weights
 (vbd/integration.py) of the trajectories that ``set_vbd_trajectories``
 installed, the logged ones until then; ``reward_type=
 "distance_to_vdb_trajs"`` adds the VBD distance bonus to the weighted
-combination.  ``vis`` and ``render`` raise (ROADMAP Queue A item 6).
+combination.  ``render`` draws a world with matplotlib through ``vis``
+(``visualize/core.py``), configured by ``render_config``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from gpudrive_lab_torch.core.bev import bev_observation
 from gpudrive_lab_torch.core.lidar import lidar_observation
 from gpudrive_lab_torch.core.render import CameraConfig, batch_render
 from gpudrive_lab_torch.core.types import Params, Scene, SimState
-from gpudrive_lab_torch.env.config import EnvConfig
+from gpudrive_lab_torch.env.config import EnvConfig, RenderConfig
 from gpudrive_lab_torch.env.dataset import SceneDataLoader
 from gpudrive_lab_torch.scene.compiler import build_scene
 from gpudrive_lab_torch.vbd.integration import (
@@ -283,8 +284,11 @@ class GPUDriveTorchEnv:
         max_roads: Optional[int] = None,
         device=None,
         data_loader: Optional[SceneDataLoader] = None,
+        render_config: Optional[RenderConfig] = None,
     ):
         self.config = config
+        self.render_config = render_config
+        self._vis = None
         self.params = config.sim_params()
         self.data_loader = data_loader
         if scene_paths is None:
@@ -746,12 +750,21 @@ class GPUDriveTorchEnv:
 
     @property
     def vis(self):
-        raise NotImplementedError(
-            "rendering is not ported yet (ROADMAP Queue A item 6, "
-            "visualize/)")
+        """The matplotlib visualizer, built at first use and again after a
+        swap or agent removal replaced the scene (reference: env_torch.py
+        constructor wiring of MatplotlibVisualizer)."""
+        if self._vis is None or self._vis.scene is not self.scene:
+            from gpudrive_lab_torch.visualize.core import MatplotlibVisualizer
 
-    def render(self, env_idx: int = 0, zoom_radius: float | None = None):
-        return self.vis
+            self._vis = MatplotlibVisualizer(self.scene, self.render_config)
+        return self._vis
+
+    def render(self, env_idx: int = 0,
+               zoom_radius: float | None = None) -> np.ndarray:
+        """World ``env_idx`` at the current state as one RGB uint8 array
+        [H, W, 3]."""
+        return self.vis.plot_simulator_state(
+            self.state, [env_idx], zoom_radius=zoom_radius)[0]
 
     # ----- name exports --------------------------------------------------
 

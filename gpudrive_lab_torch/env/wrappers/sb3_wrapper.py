@@ -12,8 +12,9 @@ spaces (None without it).
 
 Observations, rewards and dones are tensors on the env's device.  The
 host reads the dead mask once per step (for ``infos``) and the finished
-worlds' flags; rendering and videos are not ported yet (ROADMAP Queue A
-item 6).
+worlds' flags.  With ``render`` the first ``render_k_scenarios`` worlds are
+drawn every step; a finished world's frames go to wandb when a run is
+active, else to ``video_dir`` as a GIF.
 """
 
 from __future__ import annotations
@@ -37,12 +38,12 @@ class SB3MultiAgentEnv:
         video_dir: str | None = None,
         device=None,
     ):
-        if render or video_dir:
-            raise NotImplementedError(
-                "rendering and videos are not ported yet (ROADMAP Queue A "
-                "item 6, visualize/)")
         self.env = GPUDriveTorchEnv(config, data_loader=data_loader,
                                     device=device)
+        self.render = render
+        self.render_k_scenarios = render_k_scenarios
+        self.video_dir = video_dir
+        self._frames: dict[int, list] = {}
         self.device = self.env.device
         self.num_worlds = self.env.num_worlds
         self.obs_dim = self.env.observation_dim
@@ -102,9 +103,14 @@ class SB3MultiAgentEnv:
         prev_dead = self.dead_agent_mask.clone()
         self.dead_agent_mask |= dones
 
+        if self.render:
+            self.render_env()
+
         world_done = (all_dones | ~self.controlled_mask).all(dim=1)
         done_ids = torch.nonzero(world_done)[:, 0].tolist()
         if done_ids:
+            if self.render:
+                self._flush_videos(done_ids)
             self._update_info_dict(world_done, prev_dead)
             self.num_episodes += len(done_ids)
             self.env.reset(env_idx_list=done_ids)
@@ -145,6 +151,38 @@ class SB3MultiAgentEnv:
             "num_controlled_agents": vals[4],
             "truncated": vals[5],
         }
+
+    def render_env(self) -> None:
+        """Add this step's frame of each of the first k worlds (reference:
+        sb3_wrapper.py render_env/log_video_to_wandb)."""
+        for w in range(min(self.render_k_scenarios, self.num_worlds)):
+            self._frames.setdefault(w, []).append(self.env.render(w))
+
+    def _flush_videos(self, done_world_ids) -> None:
+        """At an episode's end, each finished rendered world's frames go to
+        wandb when a run is active, else into ``video_dir`` as a GIF."""
+        from gpudrive_lab_torch.visualize.video import save_video
+
+        for w in done_world_ids:
+            frames = self._frames.pop(w, None)
+            if not frames:
+                continue
+            try:
+                import wandb
+            except ImportError:
+                wandb = None
+            if wandb is not None and wandb.run is not None:
+                arr = np.stack(frames).transpose(0, 3, 1, 2)
+                wandb.log({f"videos/world_{w}": wandb.Video(arr, fps=15)})
+                continue
+            if self.video_dir:
+                from pathlib import Path
+
+                Path(self.video_dir).mkdir(parents=True, exist_ok=True)
+                save_video(
+                    frames,
+                    f"{self.video_dir}/world_{w}_ep{self.num_episodes}.gif",
+                )
 
     def close(self):
         pass

@@ -1,6 +1,6 @@
 """Closed-loop analyses of a trained BC policy (port of
-``gpudrive_lab_tpu/il/analysis.py``, all but the overlay plots, which go
-through the renderer; reference: baselines/il/test/simulation.py:1-253,
+``gpudrive_lab_tpu/il/analysis.py``; its overlay plots are the visualizer's,
+``visualize/core.py``; reference: baselines/il/test/simulation.py:1-253,
 importance_weight.py:1-197, intervention.py:1-220).
 
   * ``closed_loop_rollout``: drive the controlled agents with the BC policy

@@ -24,13 +24,23 @@ and ``scripts/train_rnn.py``'s ``policy.pkl``, the BC trainer's
 ``bc_policy.pkl``) without importing optax or flax: their classes in the
 pickle are read back as plain stand-ins, and a class from anywhere but
 numpy is refused.
+
+The reference direction: the reference releases its self-play policies as
+torch ``NeuralNet`` checkpoints (reference: gpudrive/networks/late_fusion.py
+:69-75, README.md:207-231).  Their keys are ``LateFusionPolicy``'s own, so
+``convert_state_dict`` takes each tensor by name and refuses a missing or
+extra key; ``load_pretrained`` reads a file, a directory or a hub repo id
+and returns the policy on its device.  ``ffn_params_from_flax`` and
+``perm_eq_params_from_flax`` convert the two extra networks
+(``networks/basic_ffn.py``, ``networks/perm_eq_late_fusion.py``).
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import pickle
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -197,12 +207,162 @@ def bc_params_from_flax(variables) -> Dict[str, torch.Tensor]:
     return take.finish(sd)
 
 
+def ffn_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX ``basic_ffn.FFNPolicy`` tree -> ``FFNPolicy`` state_dict
+    keys: Dense_0..Dense_{n-1} -> hidden.0..n-1, Dense_n -> actor and
+    Dense_{n+1} -> critic, for n hidden layers."""
+    take = _Leaves(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    n = len([k for k in take.tree if k.startswith("Dense_")]) - 2
+    for i in range(n):
+        take.dense(sd, f"hidden.{i}", f"Dense_{i}")
+    take.dense(sd, "actor", f"Dense_{n}")
+    take.dense(sd, "critic", f"Dense_{n + 1}")
+    return take.finish(sd)
+
+
+def perm_eq_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX ``perm_eq_late_fusion.LateFusionPolicy`` tree -> the port's
+    state_dict keys: LateFusionNet_0/Dense_{0,1,2} -> net.{ego, partner,
+    road}; _Tower_0 and _Tower_1 (Dense_l, LayerNorm_l per layer) ->
+    pi_tower and vf_tower .layers.{2l, 2l+1}; Dense_0 -> actor and Dense_1
+    -> critic."""
+    take = _Leaves(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(("ego", "partner", "road")):
+        take.dense(sd, f"net.{name}", "LateFusionNet_0", f"Dense_{i}")
+    for tower, key in (("_Tower_0", "pi_tower"), ("_Tower_1", "vf_tower")):
+        layer = 0
+        while take.has(tower, f"Dense_{layer}"):
+            take.dense(sd, f"{key}.layers.{2 * layer}", tower,
+                       f"Dense_{layer}")
+            take.layer_norm(sd, f"{key}.layers.{2 * layer + 1}", tower,
+                            f"LayerNorm_{layer}")
+            layer += 1
+    take.dense(sd, "actor", "Dense_0")
+    take.dense(sd, "critic", "Dense_1")
+    return take.finish(sd)
+
+
 def params_fn_for(module: torch.nn.Module):
-    """The converter of ``module``'s class."""
-    name = type(module).__name__
-    return {"LateFusionPolicy": params_from_flax,
-            "LateFusionLSTMPolicy": lstm_params_from_flax,
-            "EarlyFusionAttnBCNet": bc_params_from_flax}[name]
+    """The converter of ``module``'s class (named by its module, since
+    ``LateFusionPolicy`` names two networks)."""
+    cls = type(module)
+    return {
+        "networks.late_fusion.LateFusionPolicy": params_from_flax,
+        "networks.late_fusion.LateFusionLSTMPolicy": lstm_params_from_flax,
+        "il.networks.EarlyFusionAttnBCNet": bc_params_from_flax,
+        "networks.basic_ffn.FFNPolicy": ffn_params_from_flax,
+        "networks.perm_eq_late_fusion.LateFusionPolicy":
+            perm_eq_params_from_flax,
+    }[f"{cls.__module__.removeprefix('gpudrive_lab_torch.')}.{cls.__name__}"]
+
+
+# ---- the reference's torch checkpoints -----------------------------------
+
+
+def reference_keys() -> list:
+    """The state_dict keys of the reference ``NeuralNet`` (without the
+    vbd_embed branch), which are ``LateFusionPolicy``'s: each embed's
+    Linear(0), LayerNorm(1) and Linear(4) (its act(2) and Dropout(3) have
+    no parameters), shared_embed.0, actor and critic."""
+    mods = [f"{e}.{i}" for e in _EMBEDS.values() for i in (0, 1, 4)]
+    mods += list(_HEADS.values())
+    return [f"{m}.{p}" for m in mods for p in ("weight", "bias")]
+
+
+def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32)
+    return _t(x)
+
+
+def convert_state_dict(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference ``NeuralNet`` state_dict (tensors or numpy arrays) ->
+    ``LateFusionPolicy``'s state_dict, float32 on the CPU, every tensor
+    taken by its own name.  A missing or extra key raises; a checkpoint of
+    the vbd_in_obs variant (its ``vbd_embed`` branch, reference:
+    late_fusion.py:147-156) raises as the JAX converter does."""
+    if any(k.startswith("vbd_embed.") for k in sd):
+        raise NotImplementedError(
+            "vbd_in_obs policies are not supported by LateFusionPolicy (the "
+            "reference's vbd_embed branch, late_fusion.py:147-156)")
+    want = reference_keys()
+    missing = [k for k in want if k not in sd]
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise ValueError(f"not a reference NeuralNet state_dict: missing "
+                         f"{missing}, extra {extra}")
+    return {k: _tensor(sd[k]) for k in want}
+
+
+def config_from_state_dict(sd: Dict[str, Any]):
+    """The ``PolicyConfig`` of a reference state_dict, read from its
+    shapes: ``input_dim`` and ``ego_feat_dim`` from ego_embed.0,
+    ``hidden_dim`` from shared_embed.0, ``action_dim`` from actor."""
+    from gpudrive_lab_torch.networks.late_fusion import PolicyConfig
+
+    ego = tuple(sd["ego_embed.0.weight"].shape)
+    return PolicyConfig(
+        action_dim=int(sd["actor.weight"].shape[0]),
+        input_dim=int(ego[0]),
+        hidden_dim=int(sd["shared_embed.0.weight"].shape[0]),
+        ego_feat_dim=int(ego[1]),
+    )
+
+
+def load_policy_state_dict(path: str) -> Dict[str, Any]:
+    """A local checkpoint file as a flat CPU state_dict: ``.safetensors``
+    through ``safetensors.torch``, a ``.pt``/``.bin`` torch blob (a
+    state_dict, a dict holding one under "state_dict", or a pickled
+    module) through ``torch.load``.  The blob may pickle a module, so it is
+    read with ``weights_only=False``: load only checkpoints you trust."""
+    path = str(path)
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return dict(load_file(path))
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    if hasattr(blob, "state_dict"):
+        blob = blob.state_dict()
+    return dict(blob)
+
+
+def load_pretrained(repo_or_path: str, revision: str | None = None,
+                    device=None) -> Tuple[torch.nn.Module, Any]:
+    """A released reference policy as a ``LateFusionPolicy`` on ``device``
+    (CUDA unless another is named).
+
+    ``repo_or_path`` is a local file, a local directory holding
+    ``model.safetensors``, ``pytorch_model.bin`` or ``model.pt`` (looked
+    for in that order; the PyTorchModelHubMixin layout), or a hub repo id
+    such as ``daphne-cornelisse/policy_S10_000_02_27`` (reference:
+    README.md:228; fetched with ``huggingface_hub.hf_hub_download``, which
+    needs the network).  Returns (policy, policy_config); the config is
+    read from the tensors' shapes, so ``dataclasses.replace(config,
+    fused_embed=True)`` builds the same policy on kernels K3/K4."""
+    from gpudrive_lab_torch.networks.late_fusion import LateFusionPolicy
+
+    path = str(repo_or_path)
+    if os.path.isdir(path):
+        for name in ("model.safetensors", "pytorch_model.bin", "model.pt"):
+            cand = os.path.join(path, name)
+            if os.path.exists(cand):
+                path = cand
+                break
+    elif not os.path.exists(path):
+        from huggingface_hub import hf_hub_download
+
+        path = hf_hub_download(repo_id=repo_or_path,
+                               filename="model.safetensors",
+                               revision=revision)
+    sd = load_policy_state_dict(path)
+    config = config_from_state_dict(sd)
+    policy = LateFusionPolicy(config, device=device)
+    policy.load_state_dict(convert_state_dict(sd))
+    return policy, config
 
 
 def _adam_moments(opt_state):

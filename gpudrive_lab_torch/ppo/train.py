@@ -17,11 +17,14 @@ Run (on the card by default; ``--device cpu`` for a small CPU run):
 compute mode with ``--fused-embed``); ``--obs-store bf16`` or
 ``split-bf16`` with it is the JAX package's production pairing.
 
-Not ported yet, and refused when asked for: rollout videos
-(``--video-interval``) and the live dashboard (``--dashboard``); each names
-its ROADMAP item.  The JAX package's dispatch options ``--rollout-mode``,
-``--iters-per-dispatch`` and ``--packed-io`` are accepted: this trainer has
-one eager mode, and they give the same samples and metrics.
+``--video-interval N`` renders ``--video-worlds`` worlds every N
+iterations with the current policy into ``<checkpoint-path>/videos/``
+(matplotlib; the env's own state, not the trainer's carry; its time counts
+under the profile's ``env`` phase).  ``--dashboard`` shows a live rich
+table and silences the JSON lines on stdout.  The JAX package's dispatch
+options ``--rollout-mode``, ``--iters-per-dispatch`` and ``--packed-io``
+are accepted: this trainer has one eager mode, and they give the same
+samples and metrics.
 """
 
 from __future__ import annotations
@@ -206,18 +209,6 @@ def load_checkpoint(ckpt_dir, policy, optimizer=None) -> int | None:
     return None
 
 
-def _refuse(args):
-    """The options of the JAX CLI whose code is not ported yet."""
-    refused = [
-        (args.video_interval > 0, "--video-interval",
-         "Queue A item 6, visualize/"),
-        (args.dashboard, "--dashboard", "Queue A item 6, utils/dashboard"),
-    ]
-    for on, flag, item in refused:
-        if on:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP {item})")
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda",
@@ -290,12 +281,24 @@ def main(argv=None):
     p.add_argument("--fused-embed", action="store_true",
                    help="partner/road embed+pool through kernels K3/K4")
     p.add_argument("--video-interval", type=int, default=0,
-                   help="not ported yet")
+                   help="iterations between rollout videos rendered with "
+                        "the current policy into <checkpoint-path>/videos/ "
+                        "(0 = off; needs matplotlib; reference: "
+                        "env_puffer.py:405-483 wandb video pipeline)")
+    p.add_argument("--video-worlds", type=int, default=1,
+                   help="how many worlds to render per video interval")
     p.add_argument("--dashboard", action="store_true",
-                   help="not ported yet")
+                   help="live rich-console dashboard (reference: "
+                        "integrations/puffer/logging.py); the JSON lines "
+                        "on stdout are silenced while it is on")
     args = p.parse_args(argv)
-    _refuse(args)
+    if args.video_interval:
+        # videos need matplotlib: fail here, not after the first iteration
+        import matplotlib  # noqa: F401
 
+        from gpudrive_lab_torch.visualize.video import render_training_videos
+
+    from gpudrive_lab_torch.utils.dashboard import Dashboard
     from gpudrive_lab_torch.utils.logging import MetricsLogger
     from gpudrive_lab_torch.utils.profiling import Profile, Utilization
 
@@ -343,10 +346,12 @@ def main(argv=None):
             start_step = resumed
             print(json.dumps({"resumed_from": start_step}), flush=True)
 
-    logger = MetricsLogger(args.checkpoint_path, exp_id="ppo")
+    logger = MetricsLogger(args.checkpoint_path, exp_id="ppo",
+                           echo=not args.dashboard)
     profile = Profile()
     util = Utilization()
     util.start()
+    dash = Dashboard(args.total_timesteps) if args.dashboard else None
     global_step = start_step
     iteration = 0
     resampled_at = start_step
@@ -355,6 +360,8 @@ def main(argv=None):
     ent_coef = args.ent_coef
     ep_win_keys = ("perc_goal_achieved", "perc_collisions", "perc_off_road")
     ep_win = dict.fromkeys(("episodes",) + ep_win_keys, 0.0)
+    if dash is not None:
+        dash.__enter__()
     try:
         while global_step < args.total_timesteps:
             if (args.resample_interval
@@ -404,11 +411,22 @@ def main(argv=None):
                 for key in ep_win_keys:
                     m[key] = ep_win[key] / n_ep
                 ep_win = dict.fromkeys(ep_win, 0.0)
-                logger.log(dict(iteration=iteration, global_step=global_step,
-                                resamples=resample_count,
-                                resample_time_s=round(resample_time_s, 4),
-                                **{k: round(v, 5) for k, v in m.items()},
-                                **profile.summary(), **util.summary()),
+                rec = dict(iteration=iteration, global_step=global_step,
+                           resamples=resample_count,
+                           resample_time_s=round(resample_time_s, 4),
+                           **{k: round(v, 5) for k, v in m.items()},
+                           **profile.summary(), **util.summary())
+                logger.log(rec, step=global_step)
+                if dash is not None:
+                    dash.update(global_step, rec)
+            if args.video_interval and (
+                    iteration // args.video_interval
+                    != prev_iteration // args.video_interval):
+                with profile.phase("env"):
+                    paths = render_training_videos(
+                        env, ppo.policy, ckpt_dir / "videos", global_step,
+                        num_worlds=args.video_worlds)
+                logger.log({"videos": paths, "global_step": global_step},
                            step=global_step)
             if (iteration // args.checkpoint_interval
                     != prev_iteration // args.checkpoint_interval):
@@ -417,6 +435,8 @@ def main(argv=None):
         save_checkpoint(ckpt_dir, ppo.policy, ppo.optimizer, iteration,
                         global_step)
     finally:
+        if dash is not None:
+            dash.__exit__(None, None, None)
         util.stop()
         util.join()
         logger.close()

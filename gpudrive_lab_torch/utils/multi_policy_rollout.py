@@ -24,12 +24,15 @@ def multi_policy_rollout(
 ):
     """policies: {name: actor with .select_action(obs)};
     masks: {name: [W, A] bool}, disjoint subsets of the controlled mask.
-    Returns {name: {goal_achieved, collided, off_road}} fractions.
-    ``render_sim_state`` needs the visualizer, which is not ported yet."""
-    if render_sim_state:
-        raise NotImplementedError(
-            "render_sim_state is not ported yet (ROADMAP Queue A item 6, "
-            "visualize/)")
+    Returns {name: {goal_achieved, collided, off_road}} fractions, and with
+    ``render_sim_state`` also the frames: per step, the list of
+    ``render_worlds``' RGB arrays.  ``render_sim_state`` needs ``env.vis``
+    and raises at once without it, rather than collecting a video of
+    Nones."""
+    if render_sim_state and not hasattr(env, "vis"):
+        raise ValueError(
+            "render_sim_state=True needs an env with a .vis visualizer "
+            "(GPUDriveTorchEnv has one)")
     obs = env.reset()
     W, A = env.num_worlds, env.max_agent_count
     steps = max_steps or env.episode_len
@@ -37,6 +40,7 @@ def multi_policy_rollout(
              masks.items()}
     ids = {k: torch.nonzero(m.reshape(-1))[:, 0] for k, m in masks.items()}
     ref = torch.zeros((W, A), device=env.device)
+    frames = []
 
     with torch.no_grad():
         for _ in range(steps):
@@ -45,6 +49,9 @@ def multi_policy_rollout(
                        for name in policies}
             env.step_dynamics(merge_actions(actions, ids, ref))
             obs = env.get_obs()
+            if render_sim_state:
+                frames.append(env.vis.plot_simulator_state(
+                    env.state, list(render_worlds), zoom_radius=zoom_radius))
             if bool(env.get_dones().all()):
                 break
 
@@ -58,4 +65,4 @@ def multi_policy_rollout(
                              ("collided", "collided"),
                              ("off_road", "off_road"))
         }
-    return metrics
+    return (metrics, frames) if render_sim_state else metrics

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run phases of chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 scripts/chip_phases.py [il] [rnn] [vbd]
+    python3 scripts/chip_phases.py [il] [rnn] [vbd] [periphery]
 
-With no argument it runs the il, rnn and vbd phases, in that order.
+With no argument it runs the il, rnn, vbd and periphery phases, in that
+order.
 Prints the card's name and power limit, the Python, torch and CUDA
 versions, each phase's lines and its wall time, and last the launch counts
 of the phases as one JSON line.  Exits non-zero when a check of a phase
@@ -27,7 +28,8 @@ def main() -> int:
 
     import chip_smoke as cs
 
-    phases = {"il": cs.il_phase, "rnn": cs.rnn_phase, "vbd": cs.vbd_phase}
+    phases = {"il": cs.il_phase, "rnn": cs.rnn_phase, "vbd": cs.vbd_phase,
+              "periphery": cs.periphery_phase}
     names = sys.argv[1:] or list(phases)
     unknown = [n for n in names if n not in phases]
     if unknown:

@@ -958,3 +958,76 @@ def test_vbd_guidance_and_loss_on_card_match_cpu(dev):
         assert _rel(g[k], c[k]) <= 1e-4, k
     assert _rel(gl, cl) <= 1e-4
     assert _rel(gg, cg) <= 1e-4
+
+
+def _on(obj, device):
+    """A Scene or SimState with every tensor moved to ``device``."""
+    import dataclasses
+
+    return type(obj)(**{
+        f.name: None if v is None
+        else _on(v, device) if dataclasses.is_dataclass(v)
+        else v.to(device)
+        for f in dataclasses.fields(obj)
+        for v in (getattr(obj, f.name),)})
+
+
+def test_render_on_card_matches_host_render(dev):
+    """env.render of a card env's state (2-D and 3-D, zoomed) equals the
+    CPU visualizer's figure of the same scene and state copied to the
+    host, pixel for pixel.  Needs matplotlib."""
+    pytest.importorskip("matplotlib")
+    from gpudrive_lab_torch.env.config import EnvConfig, RenderConfig
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG, pool_scene_paths
+    from gpudrive_lab_torch.visualize.core import MatplotlibVisualizer
+
+    paths = pool_scene_paths(os.path.dirname(os.path.dirname(_pool_dir())))
+    env = GPUDriveTorchEnv(EnvConfig(**SLICE_CONFIG), paths[:4], device=dev,
+                           render_config=RenderConfig())
+    g = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(5):
+        env.step_dynamics(torch.randint(0, env.action_space_n,
+                                        (4, env.max_agent_count),
+                                        generator=g, device=dev))
+    scene, state = _on(env.scene, "cpu"), _on(env.state, "cpu")
+    for render_3d in (False, True):
+        env.render_config.render_3d = render_3d
+        host = MatplotlibVisualizer(scene, RenderConfig(render_3d=render_3d))
+        for w in range(4):
+            got = env.render(w, zoom_radius=60.0)
+            want = host.plot_simulator_state(state, [w],
+                                             zoom_radius=60.0)[0]
+            assert got.dtype == np.uint8 and np.array_equal(got, want)
+
+
+def test_load_pretrained_on_card_matches_cpu(dev, tmp_path):
+    """A reference NeuralNet state dict (chip_smoke's, seeded) loaded with
+    load_pretrained(device="cuda"), then with fused_embed through
+    dataclasses.replace: its logits and values on 4 pool worlds' first
+    observation within 1e-4 of the same weights on the CPU (plain embed),
+    K3 launched."""
+    import dataclasses
+
+    from chip_smoke import reference_state_dict
+    from gpudrive_lab_torch.networks.convert import load_pretrained
+    from gpudrive_lab_torch.networks.late_fusion import LateFusionPolicy
+    from gpudrive_lab_torch.rollout import pool_scene_paths, slice_env
+
+    sd = reference_state_dict(3)
+    torch.save(sd, tmp_path / "model.pt")
+    policy, cfg = load_pretrained(str(tmp_path), device="cuda")
+    assert next(policy.parameters()).device.type == "cuda"
+    fused = LateFusionPolicy(dataclasses.replace(cfg, fused_embed=True),
+                             device=dev)
+    fused.load_state_dict(policy.state_dict())
+    cpu, _ = load_pretrained(str(tmp_path), device="cpu")
+    paths = pool_scene_paths(os.path.dirname(os.path.dirname(_pool_dir())))
+    obs = slice_env(paths[:4], device="cpu").get_obs()
+    before = fe.fused_embed_pool_fwd.launches
+    with torch.no_grad():
+        got = [t.cpu() for t in fused(obs.to(dev))]
+        want = cpu(obs)
+    assert fe.fused_embed_pool_fwd.launches > before
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4

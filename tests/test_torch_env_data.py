@@ -39,6 +39,8 @@ from torch_parity import (
     POOL_SCENES,
     assert_obs_match,
     assert_states_match,
+    jax_figures,
+    no_matplotlib,
     python_scene_compiler,
     state_to_torch,
 )
@@ -302,7 +304,15 @@ def test_names_match_jax():
     assert len(set(env.get_scenario_ids().values())) == len(SWAP_SCENES)
 
 
-def test_rendering_refuses():
+def test_rendering_refuses(monkeypatch):
+    """render draws the JAX visualizer's figure of the same state (the
+    figures are held in tests/test_torch_visualize.py); on a machine
+    without matplotlib it refuses at once."""
     env, _ = _envs(paths=SWAP_SCENES[:1])
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        env.render(0)
+    np.testing.assert_array_equal(
+        env.render(0), jax_figures(env.scene, env.state, [0])[0])
+    no_matplotlib(monkeypatch)
+    fresh = GPUDriveTorchEnv(EnvConfig(**SLICE_CONFIG), SWAP_SCENES[:1],
+                             device="cpu")
+    with pytest.raises(ModuleNotFoundError, match="matplotlib"):
+        fresh.render(0)

@@ -19,8 +19,8 @@ package's on the same inputs, on the CPU.
     1e-5 and summing to 1 per head, tokens within 1e-4 and positions within
     the step's 1e-3 bar.  Goal time ratio equal.
 
-The overlay plots of tests/test_il_analysis.py go through the renderer,
-which is not ported yet (ROADMAP Queue A item 6).
+The overlay plots of tests/test_il_analysis.py are held against the JAX
+visualizer in tests/test_torch_visualize.py.
 """
 
 import jax

@@ -446,3 +446,39 @@ def assert_flat_obs_match(got, want):
     np.testing.assert_allclose(
         match_rows(got[:, head:].reshape(rows), want[:, head:].reshape(rows)),
         want[:, head:].reshape(rows), rtol=1e-5, atol=1e-5)
+
+
+def no_matplotlib(monkeypatch):
+    """Make ``import matplotlib`` fail for the rest of the test, as on a
+    machine without it: the port's visualize modules are dropped from
+    ``sys.modules`` so that their next import runs theirs."""
+    import sys
+
+    for name in list(sys.modules):
+        if name.startswith("gpudrive_lab_torch.visualize"):
+            monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
+
+def record_states(monkeypatch, env) -> list:
+    """The env's state after each ``step_dynamics`` (and after each
+    ``reset``) while the test runs, in order."""
+    states = []
+    for name in ("reset", "step_dynamics"):
+        real = getattr(env, name)
+
+        def spy(*a, _real=real, **k):
+            out = _real(*a, **k)
+            states.append(env.state)
+            return out
+        monkeypatch.setattr(env, name, spy)
+    return states
+
+
+def jax_figures(scene, state, worlds, render_config=None, **kw):
+    """The JAX visualizer's RGB arrays of ``worlds`` for the port's
+    ``scene`` and ``state`` (both crossed through numpy)."""
+    from gpudrive_lab_tpu.visualize.core import MatplotlibVisualizer
+
+    vis = MatplotlibVisualizer(scene_to_jax(scene), render_config)
+    return vis.plot_simulator_state(state_to_jax(state), list(worlds), **kw)
