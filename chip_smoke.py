@@ -41,8 +41,16 @@ safetensors; with matplotlib, worlds 0-3 of the 512 rendered on the card in
 reference NeuralNet state dict through load_pretrained onto the card, 91
 argmax steps of it with fused_embed over the 512 worlds, its logits
 against the CPU, a utils/checkpoint round trip; the PPO CLI at 512 worlds
-with --fused-embed --dashboard and, with matplotlib, --video-interval 1),
-checks the outputs, and prints:
+with --fused-embed --dashboard and, with matplotlib, --video-interval 1)
+and the ingest phase (the native scene compiler, csrc/scene_compiler.cpp,
+built with g++ in phase 1 and compiling every phase's scenes: the 512
+pool_v3 scenes compiled cold natively and with the Python path, no
+fallback, every array within 2e-4; cold and prefetched 512-world swaps both
+ways; seeded synthetic WOMD scenarios through a TFRecord shard and the
+vendored proto where protobuf is present, the converter, post_processing,
+detect_behavior, the native compiler and 91 expert steps on the card
+against the CPU; the examples of examples/torch/ on the card, 05 and 08
+only with matplotlib), checks the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -62,8 +70,8 @@ checks the outputs, and prints:
     bound_by, library_ms; for K1 and K2 also wrapper_ms and their
     large-map reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
-    rollout; for every kernel its launches in the dataset, il, rnn, vbd
-    and periphery phases);
+    rollout; for every kernel its launches in the dataset, il, rnn, vbd,
+    periphery and ingest phases);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -73,6 +81,7 @@ It imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2077,14 +2086,19 @@ PERIPHERY_PACKAGES = (("matplotlib", "matplotlib"), ("imageio", "imageio"),
                       ("safetensors", "safetensors"))
 
 
-def package_versions() -> dict:
-    """{module: its distribution's version, or "absent"}."""
+def package_versions(packages=PERIPHERY_PACKAGES) -> dict:
+    """{module: its distribution's version, or "absent"} of (module,
+    distribution) pairs."""
     import importlib.metadata
     import importlib.util
 
     out = {}
-    for mod, dist in PERIPHERY_PACKAGES:
-        if importlib.util.find_spec(mod) is None:
+    for mod, dist in packages:
+        try:
+            found = importlib.util.find_spec(mod) is not None
+        except ModuleNotFoundError:  # the parent package is missing
+            found = False
+        if not found:
             out[mod] = "absent"
             continue
         try:
@@ -2479,6 +2493,382 @@ def periphery_phase(root: str, dev) -> dict:
     return results
 
 
+# the ingest phase: the native scene compiler, the WOMD data utilities and
+# the examples
+INGEST_SCENARIOS = 16  # synthetic WOMD scenarios (2 carry traffic lights)
+INGEST_TRACKS = 64  # tracks of 91 states per scenario
+INGEST_CPU_WORLDS = 4  # worlds whose expert replay meets the CPU's
+INGEST_PACKAGES = (("google.protobuf", "protobuf"),
+                   ("matplotlib", "matplotlib"),
+                   ("safetensors", "safetensors"))
+# each example at the arguments of tests/test_examples.py, on the card:
+# (file, arguments, a key its output must hold or None for 05, which
+# prints nothing, whether it needs matplotlib)
+INGEST_EXAMPLES = (
+    ("01_simulate.py", ["--scenes-dir", "{data}"], "obs shape:", False),
+    ("02_expert_replay.py", ["--scene", "{scene}"], "reached goal:", False),
+    ("03_policy_rollout.py", ["--scenes-dir", "{data}"], "policy_b", False),
+    ("04_imitation_learning.py", ["--scene", "{scene}", "--epochs", "1"],
+     "goal_rate", False),
+    ("05_interactive_viewer.py", ["--scene", "{scene}"], None, True),
+    ("06_vbd_sim_agents.py", ["--scenes-dir", "{data}", "--steps", "2"],
+     "obs dim with VBD block: 3823", False),
+    ("07_behavior_diversity.py", ["--scenes-dir", "{data}"], "u-turns:",
+     False),
+    ("08_il_analysis.py", ["--scenes-dir", "{data}", "--epochs", "1",
+                           "--rollout-steps", "5", "--out", "{tmp}/il"],
+     "figures written", True),
+    ("09_pretrained_policy.py", ["--scenes-dir", "{data}", "--steps", "5",
+                                 "--out", "{tmp}/frame.png"],
+     "action_dim=91", False),
+)
+
+
+@contextlib.contextmanager
+def compile_path(path: str):
+    """compile_world takes ``path`` in the block: "native", or "python"
+    (GPUDRIVE_TORCH_NO_NATIVE set)."""
+    from gpudrive_lab_torch import native
+
+    if path == "python":
+        os.environ[native.NO_NATIVE_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(native.NO_NATIVE_ENV, None)
+
+
+def ingest_compile(scenes, params) -> dict:
+    """(b) The scenes compiled cold with the native compiler and with the
+    Python path (GPUDRIVE_TORCH_NO_NATIVE), compile_world's and load_map's
+    caches cleared before each: seconds of each, no fallback, every array
+    within 2e-4 of the Python path's."""
+    import numpy as np
+
+    from gpudrive_lab_torch import native
+    from gpudrive_lab_torch.scene.compiler import compile_world
+    from gpudrive_lab_torch.scene.loader import load_map
+
+    worlds, secs = {}, {}
+    native.reset_fallbacks()
+    for path in ("native", "python"):
+        compile_world.cache_clear()
+        load_map.cache_clear()
+        with compile_path(path):
+            t0 = time.perf_counter()
+            worlds[path] = [compile_world(p, params, frozenset())
+                            for p in scenes]
+            secs[path] = time.perf_counter() - t0
+    compile_world.cache_clear()
+    load_map.cache_clear()
+    check(native.fallbacks() == 0, f"ingest: the native compiler declined "
+          f"{native.fallbacks()} of the {len(scenes)} pool scenes")
+    worst, exact, arrays = {}, 0, 0
+    for n, p in zip(worlds["native"], worlds["python"]):
+        check((n.num_agents, n.num_roads) == (p.num_agents, p.num_roads),
+              "ingest: native and Python counts differ")
+        pairs = [(f"agent[{k}]", n.agent[k], p.agent[k]) for k in n.agent]
+        pairs += [(f"road[{k}]", n.road[k], p.road[k]) for k in n.road]
+        pairs += [("mean", n.mean, p.mean), ("map_name", n.map_name,
+                                             p.map_name),
+                  ("scenario_id", n.scenario_id, p.scenario_id)]
+        for k, a, b in pairs:
+            d = float(np.abs(a.astype(np.float64) - b.astype(np.float64)
+                             ).max()) if a.size else 0.0
+            worst[k] = max(worst.get(k, 0.0), d)
+            exact += bool(np.array_equal(a, b))
+            arrays += 1
+    bad = {k: v for k, v in worst.items() if not v <= 2e-4}
+    check(not bad, f"ingest: native arrays differ from the Python path's "
+          f"beyond 2e-4: {bad}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[ingest] {len(scenes)} pool_v3 scenes compiled cold: native "
+          f"{secs['native']:.3f} s, Python path {secs['python']:.3f} s "
+          f"({secs['python'] / secs['native']:.1f}x); 0 fallbacks; "
+          f"{exact} of {arrays} arrays equal, the largest differences "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top) + " (bar 2e-4)")
+    return dict(native_s=secs["native"], python_s=secs["python"],
+                exact=exact, arrays=arrays, worst=worst)
+
+
+def ingest_swaps(root: str, dev) -> dict:
+    """(c) A cold swap_data_batch of 512 worlds and one behind
+    PrefetchingSceneLoader (PREFETCH_STEPS policy rollout steps while it
+    compiles), each with the native compiler and with the Python path."""
+    import torch
+
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.dataset import SceneDataLoader
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG, rollout, slice_policy
+    from gpudrive_lab_torch.scene.compiler import compile_world
+    from gpudrive_lab_torch.scene.loader import load_map
+    from gpudrive_lab_torch.scene.prefetch import PrefetchingSceneLoader
+
+    pool = os.path.join(root, "data", "pool_v3")
+
+    def loader(seed):
+        return SceneDataLoader(pool, DATASET_WORLDS, 1000,
+                               sample_with_replacement=True, seed=seed)
+
+    env = GPUDriveTorchEnv(EnvConfig(**SLICE_CONFIG), data_loader=loader(1),
+                           device=dev)
+    policy = slice_policy(device=dev, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = next(iter(loader(2)))
+    # warm-up: a process's first rollout pays one-time set-up (5.3 s
+    # against 0.2 s when this phase ran alone without it)
+    rollout(env, policy, 1, gen)
+
+    def clear():
+        compile_world.cache_clear()
+        load_map.cache_clear()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    out = {}
+    for path in ("native", "python"):
+        with compile_path(path):
+            clear()
+            cold, _ = timed(lambda: env.swap_data_batch(batch))
+            clear()
+            pf = PrefetchingSceneLoader(loader(2), env.params)
+            try:
+                steps, _ = timed(lambda: rollout(env, policy,
+                                                 PREFETCH_STEPS, gen))
+                wait, paths = timed(pf.next_batch)
+            finally:
+                pf.close()
+            check(paths == batch, "ingest: the prefetched batch is not the "
+                  "loader's first")
+            swap, _ = timed(lambda: env.swap_data_batch(paths))
+        out[path] = dict(cold_s=cold, prefetch_steps_s=steps,
+                         prefetch_wait_s=wait, prefetch_swap_s=swap)
+        print(f"[ingest] {path}: cold swap of {DATASET_WORLDS} worlds "
+              f"{cold:.3f} s; {PREFETCH_STEPS} rollout steps while "
+              f"PrefetchingSceneLoader compiles {steps:.3f} + wait "
+              f"{wait:.3f} + swap {swap:.3f} = {steps + wait + swap:.3f} s")
+    clear()
+    print("[ingest] beside the dataset phase's Python-path cold swap of "
+          "PR 8 (1.9-2.2 s on an H100): native cold swap "
+          f"{out['native']['cold_s']:.3f} s, Python path in this run "
+          f"{out['python']['cold_s']:.3f} s")
+    return out
+
+
+def ingest_chain(dev, tmp: str, has_pb: bool) -> dict:
+    """(d) Seeded synthetic WOMD scenarios through the port's chain: with
+    protobuf a TFRecord shard of vendored-proto messages and
+    process_tfrecord, else scenario_to_dict on the plain form (the two give
+    the same JSON: tests/test_torch_data_utils.py); post_processing's
+    validation and detect_behavior's tags (2 worker processes each); the
+    native compiler and an env on the card; 91 expert steps, the first
+    INGEST_CPU_WORLDS worlds against the CPU after 90."""
+    import torch
+
+    from gpudrive_lab_torch import native
+    from gpudrive_lab_torch.data_utils import detect_behavior, post_processing
+    from gpudrive_lab_torch.data_utils.synthetic_womd import (
+        synthetic_scenarios,
+    )
+    from gpudrive_lab_torch.data_utils.waymo_converter import scenario_to_dict
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+
+    kw = dict(seed=SEED, num_tracks=INGEST_TRACKS, num_lanes=6, points=101)
+    out_dir = os.path.join(tmp, "json")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    if has_pb:
+        from gpudrive_lab_torch.data_utils import tfrecord
+        from gpudrive_lab_torch.data_utils.process_waymo_files import (
+            process_tfrecord,
+        )
+        from gpudrive_lab_torch.data_utils.waymo_protos import (
+            scenario_lite_pb2,
+        )
+
+        shard = os.path.join(tmp, "training.tfrecord-00000-of-00001")
+        tfrecord.write_tfrecord(shard, [s.SerializeToString() for s in (
+            synthetic_scenarios(INGEST_SCENARIOS, pb2=scenario_lite_pb2,
+                                **kw))])
+        _, written, filtered = process_tfrecord((shard, out_dir))
+    else:
+        written = filtered = 0
+        for i, sc in enumerate(synthetic_scenarios(INGEST_SCENARIOS, **kw)):
+            d = scenario_to_dict(sc, f"tfrecord-synthetic_{i}.json")
+            if d is None:
+                filtered += 1
+                continue
+            with open(os.path.join(out_dir, d["name"]), "w") as f:
+                json.dump(d, f)
+            written += 1
+    convert_s = time.perf_counter() - t0
+    check(written == INGEST_SCENARIOS - INGEST_SCENARIOS // 8 and filtered
+          == INGEST_SCENARIOS // 8, f"ingest: wrote {written}, filtered "
+          f"{filtered}")
+    t0 = time.perf_counter()
+    valid, invalid = post_processing.process_directory(out_dir, num_workers=2)
+    tags = detect_behavior.process_directory(out_dir, 10, num_workers=2)
+    host_s = time.perf_counter() - t0
+    check((valid, invalid) == (written, 0), f"ingest: post_processing "
+          f"{valid} valid, {invalid} removed")
+    check(tags["total_uturns"] > 0 and tags["total_reversing"] > 0,
+          f"ingest: behavior tags {tags}")
+    paths = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir))
+    native.reset_fallbacks()
+    t0 = time.perf_counter()
+    env = GPUDriveTorchEnv(EnvConfig(), paths, device=dev)
+    torch.cuda.synchronize()
+    env_s = time.perf_counter() - t0
+    check(native.fallbacks() == 0, "ingest: a synthetic scene fell back")
+    cenv = GPUDriveTorchEnv(EnvConfig(), paths[:INGEST_CPU_WORLDS],
+                            device="cpu")
+    expert = env.get_expert_actions()[0]
+    cexpert = cenv.get_expert_actions()[0]
+    env.reset()
+    cenv.reset()
+    t0 = time.perf_counter()
+    for t in range(STEPS - 1):
+        env.step_dynamics(expert[:, :, t])
+        cenv.step_dynamics(cexpert[:, :, t])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n = INGEST_CPU_WORLDS
+    pos_err = float((env.state.pos[:n].cpu() - cenv.state.pos).abs().max())
+    infos, cinfos = env.get_infos(), cenv.get_infos()
+    flips = {k: int((infos[k][:n].cpu() != cinfos[k]).sum())
+             for k in ("goal_achieved", "collided", "off_road")}
+    check(pos_err <= 1e-3 and flips["goal_achieved"] == 0,
+          f"ingest: card and CPU differ after {STEPS - 1} expert steps: "
+          f"positions by {pos_err}, flags {flips}")
+    env.step_dynamics(expert[:, :, STEPS - 1])
+    obs = env.get_obs()
+    check(bool(torch.isfinite(obs).all()), "ingest: obs not finite")
+    uncounted(lambda: k2_against_plain(env, "ingest env after the expert "
+                                       "replay", "[ingest]"))
+    W, A, R = env.num_worlds, env.max_agent_count, env.scene.max_roads
+    agents = int(env.scene.num_agents.sum())
+    print(f"[ingest] chain: {INGEST_SCENARIOS} synthetic scenarios x "
+          f"{INGEST_TRACKS} tracks ({'TFRecord + vendored proto' if has_pb else 'plain objects, no protobuf'}): "
+          f"{written} written, {filtered} filtered (traffic lights) in "
+          f"{convert_s:.2f} s; post_processing + detect_behavior "
+          f"{host_s:.2f} s ({tags['total_agents']} vehicles, "
+          f"{tags['total_uturns']} u-turns, {tags['total_reversing']} "
+          f"reversing); env W={W} A={A} R={R}, {agents} agents, native, in "
+          f"{env_s:.2f} s; {STEPS} expert steps ({step_s:.2f} s for "
+          f"{STEPS - 1} beside the CPU); card vs CPU on {n} worlds: "
+          f"positions {pos_err:.3g} m, flag differences {flips}")
+    return dict(written=written, filtered=filtered, convert_s=convert_s,
+                host_s=host_s, env_s=env_s, step_s=step_s, pos_err=pos_err,
+                flips=flips, tags={k: v for k, v in tags.items()
+                                   if k != "flagged_scenes"},
+                shape=[W, A, R])
+
+
+def ingest_examples(root: str, tmp: str, versions: dict) -> dict:
+    """(e) The port's examples in process on the card at their tests'
+    arguments; those that need matplotlib only where it is present."""
+    import io
+    import runpy
+
+    has_mpl = versions["matplotlib"] != "absent"
+    data = os.path.join(root, "tests", "data")
+    fill = dict(data=data, tmp=tmp,
+                scene=os.path.join(data, "tfrecord_synthetic_0.json"))
+    out = {}
+    for name, argv, key, needs_mpl in INGEST_EXAMPLES:
+        if needs_mpl and not has_mpl:
+            out[name] = "skipped: matplotlib absent"
+            continue
+        if name.startswith("09") and versions["safetensors"] == "absent":
+            out[name] = "skipped: safetensors absent"
+            continue
+        args = [a.format(**fill) for a in argv]
+        before = counts()
+        buf = io.StringIO()
+        old = sys.argv
+        sys.argv = [name] + args
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(os.path.join(root, "examples", "torch", name),
+                               run_name="__main__")
+        finally:
+            sys.argv = old
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        check(key is None or key in text, f"ingest: example {name} printed "
+              f"no {key!r}:\n{text[-2000:]}")
+        k2 = counts()["K2"] - before["K2"]
+        # 05 headless steps nothing; 07 reads JSON files on the host
+        check(k2 > 0 or name.startswith(("05", "07")),
+              f"ingest: example {name} did not launch K2")
+        out[name] = dict(seconds=secs, K2=k2)
+        last = text.strip().splitlines()[-1][:160] if text.strip() else ""
+        print(f"[ingest] example {name} {' '.join(args)}: {secs:.2f} s, K2 "
+              f"launches {k2} | {last}")
+    return out
+
+
+def ingest_phase(root: str, dev, native_build_s: float | None = None
+                 ) -> dict:
+    """The ingest path at full size: (a) the native scene compiler's build;
+    (b) the 512 pool_v3 scenes compiled cold both ways (ingest_compile);
+    (c) cold and prefetched 512-world swaps both ways (ingest_swaps); (d)
+    synthetic WOMD scenarios through the data utilities, the native
+    compiler and an expert replay on the card (ingest_chain); (e) the
+    port's examples on the card (ingest_examples).  The launch counts are
+    set to 0 at the start; the checks' launches are left out.  Returns
+    {launches, ...}."""
+    import tempfile
+
+    from gpudrive_lab_torch import native
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG, pool_scene_paths
+
+    t0 = time.time()
+    versions = package_versions(INGEST_PACKAGES)
+    print("[ingest] packages: " + ", ".join(
+        f"{dist} {versions[mod]}" for mod, dist in INGEST_PACKAGES)
+        + ("; without matplotlib examples 05 and 08 and 09's figure do "
+           "not run" if versions["matplotlib"] == "absent" else ""))
+    tb = time.perf_counter()
+    log = native.build()
+    build_s = time.perf_counter() - tb
+    if log is None:
+        build_s = native_build_s
+        print(f"[ingest] native scene compiler built earlier in this run"
+              + (f" ({native_build_s:.2f} s)" if native_build_s else "")
+              + f": {native.library_path().name}")
+    else:
+        print(f"[ingest] native scene compiler built in {build_s:.2f} s: "
+              f"{native.library_path().name}")
+    set_counts(dict.fromkeys(counts(), 0))
+    results = {"packages": versions, "build_s": build_s}
+    scenes = pool_scene_paths(root)
+    results["compile"] = ingest_compile(
+        scenes, EnvConfig(**SLICE_CONFIG).sim_params())
+    results["swaps"] = ingest_swaps(root, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        results["chain"] = ingest_chain(
+            dev, tmp, versions["google.protobuf"] != "absent")
+        results["examples"] = ingest_examples(root, tmp, versions)
+    launches = counts()
+    results["launches"] = launches
+    print(f"[ingest] launches in the phase: {launches}; the phase took "
+          f"{time.time() - t0:.1f} s")
+    check(launches["K2"] > 0, "the ingest phase did not launch K2")
+    for k in ("K1", "K3-bf16", "K4-bf16"):
+        check(launches[k] == 0, f"the ingest phase launched {k}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2528,6 +2918,15 @@ def main() -> int:
     t0 = time.time()
     logs = cuda_build.build()
     print(f"[build] {time.time() - t0:.1f} s for {sorted(logs) or 'cached'}")
+    # every phase compiles scenes with the native scene compiler
+    from gpudrive_lab_torch import native
+
+    t0 = time.time()
+    native_log = native.build()
+    native_build_s = time.time() - t0 if native_log is not None else None
+    print(f"[build] native scene compiler (g++ {' '.join(native.FLAGS)}): "
+          + (f"{native_build_s:.2f} s" if native_build_s is not None
+             else "cached"))
     # ptxas -v: each kernel's (mangled) name, then its spills and registers
     for name, text in logs.items():
         for line in text.splitlines():
@@ -2865,12 +3264,16 @@ def main() -> int:
     # ---- the periphery phase: rendering, reference checkpoints, the CLI's
     # video hook and dashboard -----------------------------------------------
     periphery = periphery_phase(root, dev)
+    # ---- the ingest phase: the native compiler, the WOMD data utilities
+    # and the examples ------------------------------------------------------
+    ingest = ingest_phase(root, dev, native_build_s)
     for key, rec in results.items():
         base = key.split(",")[0]
         rec["il_launches"] = il["launches"][base]
         rec["rnn_launches"] = rnn["launches"][base]
         rec["vbd_launches"] = vbd["launches"][base]
         rec["periphery_launches"] = periphery["launches"][base]
+        rec["ingest_launches"] = ingest["launches"][base]
 
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
@@ -2910,7 +3313,7 @@ def main() -> int:
             "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
             "sensor_launches", "dataset_launches", "il_launches",
             "rnn_launches", "vbd_launches", "periphery_launches",
-            "bar_readings")
+            "ingest_launches", "bar_readings")
             if k in r})
     print(json.dumps(line))
     print(card)

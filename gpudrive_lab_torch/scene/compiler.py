@@ -7,9 +7,11 @@ Each world compiles to struct-of-arrays numpy blocks padded to A = 128 agents
 and a bucketed road count; ``build_scene`` stacks them into a ``Scene`` of
 torch tensors on the requested device.
 
-This is the pure-Python path of the JAX package (``_compile_world_py``).
-The JAX package's native C++ compiler (csrc/scene_compiler.cpp) gets the
-port's own loader in a later change.
+``compile_world`` prefers the native C++ compiler (csrc/scene_compiler.cpp,
+shared with the JAX package, built and loaded by ``gpudrive_lab_torch.native``)
+and takes the pure-Python path (``_compile_world_py``) when
+``GPUDRIVE_TORCH_NO_NATIVE`` is set or the C++ parser declines a scene.  Both
+paths give the same arrays to 2e-4 (tests/test_torch_native_compiler.py).
 """
 
 from __future__ import annotations
@@ -131,8 +133,87 @@ def _should_create(obj, params: Params, deleted: frozenset) -> bool:
 def compile_world(
     path: str, params: Params, deleted: frozenset = frozenset()
 ) -> CompiledWorld:
-    """Compile one scenario JSON (cached per path, params and deletions)."""
+    """Compile one scenario JSON (cached per path, params and deletions)
+    with the native compiler, or with the Python path when the native one
+    is switched off or declines the scene (``native.fallbacks`` counts
+    those)."""
+    world = _compile_world_native(path, params, deleted)
+    if world is not None:
+        return world
     return _compile_world_py(path, params, deleted)
+
+
+def _compile_world_native(
+    path: str, params: Params, deleted: frozenset
+) -> CompiledWorld | None:
+    """The native compiler's world, or None when it is switched off
+    (``GPUDRIVE_TORCH_NO_NATIVE``) or declines the scene.  Raises when the
+    library does not build or load."""
+    from gpudrive_lab_torch import native
+
+    if not native.enabled():
+        return None
+    with open(path, "rb") as f:
+        raw = f.read()
+    arrays = native.compile_scene_native(
+        raw,
+        polyline_threshold=params.polyline_reduction_threshold,
+        ignore_non_vehicles=params.ignore_non_vehicles,
+        init_only_valid=params.init_only_valid_agents,
+        read_tracks=params.read_from_tracks_to_predict,
+        is_static_controlled=params.is_static_agent_controlled,
+        max_controlled=params.max_num_controlled_agents,
+        r_cap=C.MAX_ROAD_ENTITIES,
+        deleted=tuple(deleted),
+    )
+    if arrays is None:
+        return None
+    num_agents = int(arrays["num_agents"][0])
+    num_roads = int(arrays["num_roads"][0])
+    A, T = C.MAX_AGENTS, C.TRAJECTORY_LEN
+    ag = dict(
+        valid=arrays["valid"].astype(bool),
+        etype=arrays["etype"],
+        size=arrays["size"],
+        goal=arrays["goal"],
+        aid=arrays["aid"],
+        controlled=arrays["controlled"].astype(bool),
+        static=arrays["is_static"].astype(bool),
+        mark_as_expert=arrays["mark_expert"].astype(bool),
+        metadata=arrays["metadata"],
+        traj_pos=arrays["traj_pos"],
+        traj_vel=arrays["traj_vel"],
+        traj_yaw=arrays["traj_yaw"],
+        traj_valid=arrays["traj_valid"],
+        traj_inv_actions=np.zeros((A, T, C.ACTION_DIM), np.float32),
+    )
+    # Inverse expert actions (populateExpertTrajectory,
+    # src/level_gen.cpp:56-100) — numpy, per created agent.
+    for i in range(num_agents):
+        if params.dynamics_model == DynamicsModel.INVERTIBLE_BICYCLE:
+            ag["traj_inv_actions"][i] = _inverse_bicycle_np(
+                ag["traj_pos"][i], ag["traj_vel"][i], ag["traj_yaw"][i]
+            )
+        elif params.dynamics_model == DynamicsModel.DELTA_LOCAL:
+            ag["traj_inv_actions"][i] = _inverse_delta_np(
+                ag["traj_pos"][i], ag["traj_yaw"][i]
+            )
+        else:
+            ag["traj_inv_actions"][i] = _zero_action(params.dynamics_model)
+    road = dict(
+        pos=arrays["road_pos"][:num_roads],
+        yaw=arrays["road_yaw"][:num_roads],
+        scale=arrays["road_scale"][:num_roads],
+        etype=arrays["road_type"][:num_roads],
+        rid=arrays["road_id"][:num_roads],
+        map_type=arrays["road_map_type"][:num_roads],
+    )
+    mean3 = np.array([arrays["mean"][0], arrays["mean"][1], 0.0], np.float32)
+    return CompiledWorld(
+        agent=ag, road=road, num_agents=num_agents, num_roads=num_roads,
+        mean=mean3, map_name=arrays["name_codes"],
+        scenario_id=arrays["scenario_codes"],
+    )
 
 
 def _compile_world_py(

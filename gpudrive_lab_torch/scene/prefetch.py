@@ -6,11 +6,13 @@ reference: src/mgr.cpp:590-654): a thread pool compiles the NEXT batch's
 worlds while the current batch trains, so that ``swap_data_batch`` finds
 them in ``compile_world``'s cache.
 
-The port's scene compiler is pure Python and holds the interpreter lock
-while it parses, so the background threads take turns with the training
-loop's host code instead of running beside it (the JAX package counts on
-its native compiler releasing the lock).  What the overlap buys on the
-card is measured by ``chip_smoke.py``'s dataset phase.
+``compile_world`` runs the native C++ compiler (``gpudrive_lab_torch.native``)
+through ctypes, which releases the interpreter lock for the foreign call,
+so the threads parse and compile beside the training loop's host code; the
+numpy inverse actions and the Python around the call still take the lock
+(with ``GPUDRIVE_TORCH_NO_NATIVE`` set, the whole compile does).  What the
+overlap buys on the card is measured by ``chip_smoke.py``'s dataset and
+ingest phases.
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ def test_importing_every_module_loads_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 86  # every module was imported
+    assert int(out.stdout.split()[0]) >= 97  # every module was imported
 
 
 def test_walk_covers_the_dataset_slice():
@@ -109,11 +109,30 @@ def _imported_roots(path):
 
 def test_no_source_names_jax():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(os.path.join(ROOT, "gpudrive_lab_torch")):
-        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    for top in ("gpudrive_lab_torch", os.path.join("examples", "torch")):
+        for d, _, files in os.walk(os.path.join(ROOT, top)):
+            paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert sum("examples" in p for p in paths) == 9
     for p in paths:
         bad = set(_imported_roots(p)) & set(FORBIDDEN)
         assert not bad, (p, bad)
+
+
+def test_walk_covers_the_ingest_slice():
+    """The native scene compiler and the WOMD data utilities are among the
+    modules imported."""
+    import pkgutil
+
+    import gpudrive_lab_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        gpudrive_lab_torch.__path__, "gpudrive_lab_torch.")}
+    for name in ("native", "data_utils.tfrecord", "data_utils.waymo_converter",
+                 "data_utils.process_waymo_files",
+                 "data_utils.post_processing", "data_utils.detect_behavior",
+                 "data_utils.download", "data_utils.synthetic_womd",
+                 "data_utils.waymo_protos.scenario_lite_pb2"):
+        assert "gpudrive_lab_torch." + name in mods, name
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

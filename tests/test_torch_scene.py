@@ -49,8 +49,9 @@ def _leaves(obj, prefix=""):
 def test_build_scene_bitwise(name, max_agents):
     params = PARAM_SETS[name]
     paths = [SYNTHETIC_SCENE] + POOL_SCENES[:8]
-    scene = build_scene(paths, params, max_agents=max_agents, device="cpu")
     with python_scene_compiler():
+        scene = build_scene(paths, params, max_agents=max_agents,
+                            device="cpu")
         jscene = jax_build_scene(paths, jax_params(params),
                                  max_agents=max_agents)
     got, want = _leaves(scene), _leaves(jscene)

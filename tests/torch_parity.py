@@ -2,9 +2,9 @@
 
 Both packages are fed the same values: data is made with numpy from a seed,
 and a Scene or SimState crosses between the packages as numpy arrays.  The
-JAX package is used as it is; its native scene compiler is switched off
-(``python_scene_compiler``) so that both packages compile scenes with the
-same Python path.
+JAX package is used as it is.  Where a test needs both packages to compile
+scenes with the same Python path, ``python_scene_compiler`` switches off
+both native compilers.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ import torch
 from gpudrive_lab_tpu.core import types as jtypes
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_tpu.scene import compiler as jcompiler
+from gpudrive_lab_torch import native as tnative
 from gpudrive_lab_torch.core import types as ttypes
+from gpudrive_lab_torch.scene import compiler as tcompiler
 from gpudrive_lab_torch.networks.convert import (
     adam_state_from_optax,
     params_fn_for,
@@ -42,15 +44,21 @@ torch.set_num_threads(min(torch.get_num_threads(), 2))
 
 @contextlib.contextmanager
 def python_scene_compiler():
-    """Make the JAX package compile scenes with its pure-Python path (the
-    path the port carries) for the duration of the block."""
+    """Make both packages compile scenes with their pure-Python paths for
+    the duration of the block: the JAX package's native path is patched
+    out and the port's switched off through its environment variable.
+    Both ``compile_world`` caches are cleared on entry and on exit, so no
+    world of the other path is served from them."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcompiler, "_compile_world_native", lambda *a, **k: None)
+        mp.setenv(tnative.NO_NATIVE_ENV, "1")
         jcompiler.compile_world.cache_clear()
+        tcompiler.compile_world.cache_clear()
         try:
             yield
         finally:
             jcompiler.compile_world.cache_clear()
+            tcompiler.compile_world.cache_clear()
 
 
 @contextlib.contextmanager
