@@ -50,7 +50,17 @@ ways; seeded synthetic WOMD scenarios through a TFRecord shard and the
 vendored proto where protobuf is present, the converter, post_processing,
 detect_behavior, the native compiler and 91 expert steps on the card
 against the CPU; the examples of examples/torch/ on the card, 05 and 08
-only with matplotlib), checks the outputs, and prints:
+only with matplotlib), then the collision phase (the grid and top-K
+agent-road paths: the 512 pool worlds for 91 steps of seeded random
+actions under dense K2, the grid and top-K with K = 32, flags equal at
+every step; one pass on a 64-world large map under K1, K2, the grid and
+top-K at K = 256 and 32, the card against the CPU on 4 worlds; ms per
+collision pass and peak memory of each path at both sizes) and the multi
+phase (parallel/dryrun.py: the JAX dryrun's three learner configurations
+over 2 gloo ranks sharing the card, 128 worlds each, against one process
+at the dryrun's bars, the ranks' parameters bitwise equal; what NCCL says
+to two ranks on one card; world-steps/s at 1 and 2 ranks, labelled as a
+shared card: not scaling evidence), checks the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -71,7 +81,8 @@ only with matplotlib), checks the outputs, and prints:
     large-map reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
     rollout; for every kernel its launches in the dataset, il, rnn, vbd,
-    periphery and ingest phases);
+    periphery, ingest, collision and multi phases, the multi phase's
+    counted inside its ranks);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -2869,6 +2880,327 @@ def ingest_phase(root: str, dev, native_build_s: float | None = None
     return results
 
 
+COLLISION_STEPS = 91  # steps of the 512-world rollouts under each path
+COLLISION_TOP_K = 32  # top-K on the pool worlds (the JAX test's K)
+COLLISION_LARGE = dict(W=64, A=128, R=10240, n_active=24)  # (b)'s map
+COLLISION_LARGE_KS = (256, 32)  # top-K on the large map: required, printed
+COLLISION_CPU_WORLDS = 4  # large-map worlds held against the CPU
+COLLISION_REPS = 20  # collision passes per time reading
+
+
+def collision_pass_ms(scene, state, params, cur) -> tuple[float, int]:
+    """(ms per collision pass from CUDA events, the peak device memory the
+    pass adds in bytes), its launches left out of the counts."""
+    import torch
+
+    from gpudrive_lab_torch.core.collision import collision_system
+
+    def one():
+        return collision_system(scene, state, params, cur)
+
+    def measure():
+        ms = time_ms(one, COLLISION_REPS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        one()
+        torch.cuda.synchronize()
+        return ms, torch.cuda.max_memory_allocated() - base
+
+    return uncounted(measure)
+
+
+def collision_rollouts(root: str, dev, params) -> dict:
+    """(a): the 512 pool worlds, COLLISION_STEPS steps of seeded random
+    continuous actions under dense K2, the grid and top-K (K = 32), the
+    flags equal to dense's at every step, positions within 1e-6; the
+    launches of K1/K2 under each; then (c)'s passes at this size on the
+    rollout's last state, with K1 over forced road tiles."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gpudrive_lab_torch import constants as C
+    from gpudrive_lab_torch.core import step as stepmod
+    from gpudrive_lab_torch.rollout import pool_scene_paths
+    from gpudrive_lab_torch.scene.compiler import build_scene, compile_world
+    from gpudrive_lab_torch.scene.grid import build_collision_grid
+
+    paths = pool_scene_paths(root)
+    grid_p = dataclasses.replace(params, use_collision_grid=True)
+    topk_p = dataclasses.replace(params, collision_top_k=COLLISION_TOP_K)
+    t0 = time.perf_counter()
+    worlds = [compile_world(p, params, frozenset()) for p in paths]
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_collision_grid(worlds, device=dev)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    dense = build_scene(paths, params, device=dev)
+    grid = build_scene(paths, grid_p, device=dev)
+    g = grid.grid
+    print(f"[collision] (a) {dense.num_worlds} pool worlds, R "
+          f"{dense.max_roads}; grid table {list(g.table.shape)} (K = the "
+          f"batch's largest cell); grid build {grid_s:.3f} s host for the "
+          f"{len(worlds)} compiled worlds (compile_world {compile_s:.3f} s, "
+          "cached)")
+    rng = np.random.default_rng(SEED)
+    W, A = dense.agents.valid.shape
+    runs = {"dense": (dense, params), "grid": (grid, grid_p),
+            "top-k": (dense, topk_p)}
+    states = {k: stepmod.reset(s, None, p) for k, (s, p) in runs.items()}
+    launches = {k: 0 for k in runs}
+    hits = 0
+    for t in range(COLLISION_STEPS):
+        acts = np.zeros((W, A, C.ACTION_DIM), np.float32)
+        acts[..., 0] = rng.uniform(-4, 4, (W, A))
+        acts[..., 1] = rng.uniform(-0.5, 0.5, (W, A))
+        a = torch.from_numpy(acts).to(dev)
+        for k, (s, p) in runs.items():
+            before = counts()
+            states[k] = stepmod.step(s, states[k], a, p)
+            after = counts()
+            launches[k] += (after["K1"] - before["K1"]
+                            + after["K2"] - before["K2"])
+        d = states["dense"]
+        for k in ("grid", "top-k"):
+            s = states[k]
+            for f in ("collided", "collided_road"):
+                check(torch.equal(getattr(s, f), getattr(d, f)),
+                      f"collision (a): {k} {f} differs from dense at step "
+                      f"{t}")
+            err = float((s.pos - d.pos).abs().max())
+            check(err <= 1e-6, f"collision (a): {k} positions differ from "
+                  f"dense by {err} at step {t}")
+        hits += int(d.collided_road.sum())
+    print(f"[collision] (a) {COLLISION_STEPS} steps: grid and top-K (K = "
+          f"{COLLISION_TOP_K}) flags equal to dense at every step, positions "
+          f"equal; collided_road summed over steps {hits}; K1+K2 launches "
+          f"dense {launches['dense']}, grid {launches['grid']}, top-K "
+          f"{launches['top-k']}")
+    check(launches["dense"] > 0, "collision (a): dense launched no K2")
+    check(launches["grid"] == 0 and launches["top-k"] == 0,
+          "collision (a): the grid or top-K path launched K1/K2")
+    check(hits > 0, "collision (a): the random drive hit no road")
+    tiles = build_scene(paths, dataclasses.replace(
+        params, use_tile_collision=True), device=dev)
+    st = states["dense"]
+    cur = stepmod.current_step_index(st)
+    passes = {}
+    for k, (s, p) in (("K2 dense", (dense, params)),
+                      ("K1 tiled (forced tiles)", (tiles, params)),
+                      ("grid", (grid, grid_p)),
+                      (f"top-K {COLLISION_TOP_K}", (dense, topk_p))):
+        passes[k] = collision_pass_ms(s, st, p, cur)
+    return {"grid_build_s": grid_s, "passes": passes, "hits": hits,
+            "launches": launches}
+
+
+def collision_large(dev, params) -> dict:
+    """(b): the large map as a Scene (scene/large_map.large_map_scene),
+    one collision pass under K1, K2, the grid and top-K: the grid and top-K
+    at K = 256 equal to K1 and K2, top-K at K = 32 and its misses printed;
+    the grid and top-K against the port on the CPU on the first
+    COLLISION_CPU_WORLDS worlds; then (c)'s passes at this size."""
+    import dataclasses
+
+    import torch
+
+    from gpudrive_lab_torch.core.collision import collision_system
+    from gpudrive_lab_torch.scene.large_map import large_map_scene
+
+    t0 = time.perf_counter()
+    scene, state, cur = large_map_scene(**COLLISION_LARGE, seed=SEED,
+                                        device=dev, grid=False)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene, state, cur = large_map_scene(**COLLISION_LARGE, seed=SEED,
+                                        device=dev)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0 - map_s
+    print(f"[collision] (b) large map {COLLISION_LARGE}: grid table "
+          f"{list(scene.grid.table.shape)}, its build {grid_s:.3f} s host "
+          f"(the map alone {map_s:.3f} s)")
+    variants = {"K1": params,
+                "K2": dataclasses.replace(params, use_tile_collision=False),
+                "grid": dataclasses.replace(params, use_collision_grid=True)}
+    for k in COLLISION_LARGE_KS:
+        variants[f"top-K {k}"] = dataclasses.replace(params,
+                                                     collision_top_k=k)
+    flags, launches = {}, {}
+    for name, p in variants.items():
+        before = counts()
+        out = collision_system(scene, state, p, cur)
+        after = counts()
+        launches[name] = {k: after[k] - before[k] for k in ("K1", "K2")}
+        flags[name] = out.collided_road
+    want = flags["K2"]
+    check(torch.equal(flags["K1"], want), "collision (b): K1 differs from K2")
+    check(launches["K1"]["K1"] > 0 and launches["K2"]["K2"] > 0,
+          "collision (b): K1 or K2 was not launched")
+    for name in ("grid", f"top-K {COLLISION_LARGE_KS[0]}",
+                 f"top-K {COLLISION_LARGE_KS[1]}"):
+        check(sum(launches[name].values()) == 0,
+              f"collision (b): {name} launched K1/K2")
+    check(torch.equal(flags["grid"], want), "collision (b): the grid "
+          "differs from K1 and K2")
+    check(torch.equal(flags[f"top-K {COLLISION_LARGE_KS[0]}"], want),
+          f"collision (b): top-K {COLLISION_LARGE_KS[0]} differs from dense")
+    k32 = flags[f"top-K {COLLISION_LARGE_KS[1]}"]
+    missed = int(((want != 0) & (k32 == 0)).sum())
+    print(f"[collision] (b) one pass: {int(want.sum())} agents on a road, "
+          f"grid = K1 = K2, top-K {COLLISION_LARGE_KS[0]} = dense; top-K "
+          f"{COLLISION_LARGE_KS[1]} misses {missed} hits (printed, not "
+          "required); K1/K2 launches " + ", ".join(
+              f"{k} {sum(v.values())}" for k, v in launches.items()))
+    n = COLLISION_CPU_WORLDS
+    cscene, cstate = take_worlds(scene, n, "cpu"), take_worlds(state, n,
+                                                               "cpu")
+    for name in ("grid", f"top-K {COLLISION_LARGE_KS[0]}"):
+        got = collision_system(cscene, cstate, variants[name],
+                               cur[:n].cpu()).collided_road
+        check(torch.equal(got, flags[name][:n].cpu()),
+              f"collision (b): {name} on the card differs from the CPU")
+    print(f"[collision] (b) grid and top-K {COLLISION_LARGE_KS[0]}: the card "
+          f"equals the CPU on {n} worlds")
+    passes = {name: collision_pass_ms(scene, state, p, cur)
+              for name, p in variants.items()}
+    return {"grid_build_s": grid_s, "passes": passes, "missed_top32": missed,
+            "launches": launches}
+
+
+def collision_phase(root: str, dev) -> dict:
+    """The grid and top-K collision paths on the card: (a) the 512 pool
+    worlds under dense K2, the grid and top-K for COLLISION_STEPS steps,
+    (b) one pass on the large map under all four paths, (c) ms per
+    collision pass (CUDA events) and the peak memory each adds, at both
+    sizes, and the grid's host build seconds.  The launch counts are set to
+    0 at the start; the timing launches are left out."""
+    import torch
+
+    from gpudrive_lab_torch.core.types import CollisionBehaviour
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG
+
+    t0 = time.time()
+    set_counts(dict.fromkeys(counts(), 0))
+    params = EnvConfig(**SLICE_CONFIG).sim_params()
+    check(params.collision_behaviour == CollisionBehaviour.IGNORE,
+          "the slice's collision behaviour is not ignore")
+    out = {"pool": collision_rollouts(root, dev, params)}
+    torch.cuda.empty_cache()
+    out["large"] = collision_large(dev, params)
+    for size in ("pool", "large"):
+        for name, (ms, peak) in out[size]["passes"].items():
+            print(f"[collision] (c) {size}: {name} {ms:.4f} ms per "
+                  f"collision pass, peak +{peak / 2**20:.1f} MiB")
+    torch.cuda.empty_cache()
+    out["launches"] = counts()
+    print(f"[collision] launches in the phase: {out['launches']}; the phase "
+          f"took {time.time() - t0:.1f} s")
+    return out
+
+
+MULTI_RANKS = 2
+MULTI_WORLDS_PER_RANK = 128
+
+
+def _nccl_probe(rank: int, spec: dict) -> str:
+    """Two NCCL ranks on one card: the error NCCL gives, to the parent."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=spec["init_method"],
+                                world_size=2, rank=rank)
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f"no error: all_reduce gave {float(t)}"
+        dist.destroy_process_group()
+    except Exception:  # the message is the finding
+        msg = traceback.format_exc().strip().splitlines()[-1]
+    return msg
+
+
+def nccl_on_one_card(timeout: float = 60.0) -> list[str]:
+    """What NCCL says to two ranks on cuda:0 (each rank's last line, or
+    how the ranks ended where one hung or died)."""
+    from gpudrive_lab_torch.parallel.distributed import run_ranks
+
+    try:
+        return run_ranks(_nccl_probe, 2, {}, timeout)
+    except RuntimeError as e:  # a hang is a finding too, not a failure
+        return [str(e).replace("\n", " ")]
+
+
+def multi_phase(root: str, dev) -> dict:
+    """World-parallel training across processes on the card:
+    dryrun_multiprocess with MULTI_RANKS ranks sharing cuda:0 over gloo
+    (NCCL refuses two ranks on one device: probed and printed), the full
+    width late-fusion policy with fused_embed (K3/K4 and their bf16 modes
+    in configurations 1 and 2) and the unfused LSTM policy (3),
+    MULTI_WORLDS_PER_RANK worlds per rank, two iterations per
+    configuration; then the world-steps/s of the sharded step at 1 and
+    MULTI_RANKS ranks, labelled as a shared card.  Returns the ranks'
+    launches summed over configurations and ranks."""
+    from gpudrive_lab_torch.parallel.dryrun import CONFIGS, dryrun_multiprocess
+    from gpudrive_lab_torch.parallel.scaling import measure_scaling
+
+    t0 = time.time()
+    set_counts(dict.fromkeys(counts(), 0))
+    # every rank on card 0 (here and in the scaling below), whatever the
+    # host has: the phase needs one card
+    report = dryrun_multiprocess(MULTI_RANKS, "cuda:0", MULTI_WORLDS_PER_RANK,
+                                 root=root, backend="gloo", timeout=600)
+    dry_s = time.time() - t0
+    total = dict.fromkeys(counts(), 0)
+    for name in CONFIGS:
+        r = report[name]
+        print(f"[multi] dryrun[{name}]: {MULTI_RANKS} gloo ranks on one card "
+              f"== one process over {MULTI_RANKS * MULTI_WORLDS_PER_RANK} "
+              f"worlds: max param delta {r['max_param_delta']:.3g}, max "
+              f"metric delta {r['max_metric_delta']:.3g}; rows per rank "
+              f"{r['rank_rows']}; one process {r['single_s']:.1f} s, ranks "
+              + ", ".join(f"{s:.1f}" for s in r["rank_s"]) + " s; launches "
+              "per rank " + "; ".join(
+                  ", ".join(f"{k} {v}" for k, v in n.items() if v)
+                  for n in r["launches"]))
+        for n in r["launches"]:
+            check(n["K2"] > 0, f"multi {name}: a rank launched no K2")
+            for k, v in n.items():
+                total[k] += v
+        if name == "dense":
+            check(all(n["K3"] > 0 and n["K4"] > 0 for n in r["launches"]),
+                  "multi dense: a rank launched no K3 or K4")
+        if name.startswith("flat"):
+            check(all(n["K3-bf16"] > 0 and n["K4-bf16"] > 0
+                      for n in r["launches"]),
+                  "multi flat+bf16: a rank launched no K3-bf16 or K4-bf16")
+    print(f"[multi] backend {report['backend']} on {report['devices']}; "
+          f"the dryrun took {dry_s:.1f} "
+          "s; every rank's parameters bitwise equal in every configuration")
+    said = nccl_on_one_card()
+    print("[multi] NCCL with 2 ranks on cuda:0: " + " | ".join(said))
+    t1 = time.time()
+    sc = measure_scaling((1, MULTI_RANKS), "cuda:0", MULTI_WORLDS_PER_RANK,
+                         backend="gloo", root=root)
+    for k, v in sc["sps"].items():
+        print(f"[multi] sharded step at {k} rank(s) x "
+              f"{MULTI_WORLDS_PER_RANK} worlds on {sc['devices'][k]}: "
+              f"{v:.1f} world-steps/s, efficiency "
+              f"{sc['efficiency'][k]:.3f} ({sc['label'] or 'one card a rank'})")
+    print(f"[multi] scaling {time.time() - t1:.1f} s; the phase took "
+          f"{time.time() - t0:.1f} s; the ranks' launches {total}")
+    return {"launches": total, "report": report, "nccl": said,
+            "scaling": sc}
+
+
 def main() -> int:
     import torch
 
@@ -3267,6 +3599,10 @@ def main() -> int:
     # ---- the ingest phase: the native compiler, the WOMD data utilities
     # and the examples ------------------------------------------------------
     ingest = ingest_phase(root, dev, native_build_s)
+    # ---- the collision phase: the grid and top-K agent-road paths ----------
+    collision_out = collision_phase(root, dev)
+    # ---- the multi phase: world-parallel training across processes --------
+    multi = multi_phase(root, dev)
     for key, rec in results.items():
         base = key.split(",")[0]
         rec["il_launches"] = il["launches"][base]
@@ -3274,6 +3610,8 @@ def main() -> int:
         rec["vbd_launches"] = vbd["launches"][base]
         rec["periphery_launches"] = periphery["launches"][base]
         rec["ingest_launches"] = ingest["launches"][base]
+        rec["collision_launches"] = collision_out["launches"][base]
+        rec["multi_launches"] = multi["launches"][base]
 
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
@@ -3313,7 +3651,8 @@ def main() -> int:
             "wrapper_ms", "large_map", "bound_fp32_ms", "ms_by_rows",
             "sensor_launches", "dataset_launches", "il_launches",
             "rnn_launches", "vbd_launches", "periphery_launches",
-            "ingest_launches", "bar_readings")
+            "ingest_launches", "collision_launches", "multi_launches",
+            "bar_readings")
             if k in r})
     print(json.dumps(line))
     print(card)

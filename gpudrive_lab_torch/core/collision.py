@@ -7,15 +7,21 @@ Replaces the reference's broadphase BVH + narrow-phase OBB systems
     (core/obb.obb_overlap_sat), in plain PyTorch;
   * agent-road: kernel K2 (dense, core/kernels.agent_road_hits_dense) at the
     default road buckets, or kernel K1 (tile-skip,
-    core/kernels.agent_road_hits_tiled) when the scene carries road tiles.
+    core/kernels.agent_road_hits_tiled) when the scene carries road tiles;
+    or, when asked for, the road candidates of the agent's grid cell
+    (``Params.use_collision_grid`` with ``Scene.grid``) or the K roads of
+    least (center distance - half length) (``Params.collision_top_k``),
+    each gathered and tested with the SAT in plain PyTorch, as the JAX
+    package computes both in XLA outside its Pallas kernels.
 
 Skip rules replicate isInvalidExpertOrDone (src/sim.cpp:631-666).  The
 collision-pair whitelist (src/sim.hpp:88-102) reduces to: vehicles collide
 only with RoadEdge/StopSign among road types; pedestrians/cyclists only with
 StopSign; agent-agent pairs always collide.
 
-The grid (``Params.use_collision_grid``) and candidate top-K
-(``Params.collision_top_k``) branches are not ported yet and raise.
+Top-K is an approximation by design: a hit is missed when K or more roads
+score below it.  ``approx_top_k`` selects the same exact ``torch.topk``; the
+JAX package's ``lax.approx_max_k`` may drop a hit, which is not copied.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from gpudrive_lab_torch.core.kernels import (
     agent_road_hits_dense,
     agent_road_hits_tiled,
 )
-from gpudrive_lab_torch.core.types import Params, Scene, SimState
+from gpudrive_lab_torch.core.types import Params, Scene, SimState, vec_norm
 from gpudrive_lab_torch.scene.rtiles import MORTON_CELLS, morton_interleave
 
 
@@ -154,6 +160,62 @@ def _tiled_road_hits(scene: Scene, state: SimState, feat: torch.Tensor):
     return torch.gather(hits_s, 1, inv_perm) > 0.5
 
 
+def _grid_candidates(grid, state: SimState) -> torch.Tensor:
+    """[W, A, K] road indices (-1 padding) of each agent's grid cell; a
+    position outside the grid takes the nearest edge cell."""
+    cell = torch.floor(
+        (state.pos - grid.origin[:, None, :]) / grid.cell_size[:, None, None]
+    ).to(torch.int32)
+    cx = torch.clamp(cell[..., 0], min=0)
+    cx = torch.minimum(cx, grid.dims[:, None, 0] - 1)
+    cy = torch.clamp(cell[..., 1], min=0)
+    cy = torch.minimum(cy, grid.dims[:, None, 1] - 1)
+    w = torch.arange(cell.shape[0], device=cell.device)[:, None]
+    return grid.table[w, cy.long(), cx.long()]
+
+
+def _top_k_candidates(scene: Scene, state: SimState, active, k: int):
+    """[W, A, K] the K road indices of least (center distance - half
+    length) among each agent's allowed pairs (collision.py:205-226).  The
+    score bounds the box distance from below, so a hit scores below about
+    the agent's radius."""
+    roads = scene.roads
+    d = vec_norm(roads.pos[:, None, :, 0:2] - state.pos[:, :, None, :])
+    score = d - roads.scale[:, None, :, 0]
+    pair_ok = (active[:, :, None] & roads.valid[:, None, :]
+               & _road_allowed(scene.agents.etype[:, :, None],
+                               roads.etype[:, None, :]))
+    score = torch.where(pair_ok, score, torch.inf)
+    return torch.topk(-score, k, dim=-1).indices
+
+
+def _candidate_road_hits(scene: Scene, state: SimState, active, half,
+                         cand: torch.Tensor) -> torch.Tensor:
+    """Agent-road any-hit [W, A] over the road candidates cand [W, A, K]
+    (-1 padding): the candidates' boxes gathered, their pair mask checked,
+    then the SAT."""
+    roads = scene.roads
+    W, A, K = cand.shape
+    safe = cand.clamp(min=0).long().reshape(W, A * K)
+
+    def take(x):  # [W, R, ...] -> [W, A, K, ...]
+        idx = safe.reshape(safe.shape + (1,) * (x.dim() - 2)).expand(
+            (W, A * K) + x.shape[2:])
+        return torch.gather(x, 1, idx).reshape((W, A, K) + x.shape[2:])
+
+    r_ok = (
+        (cand >= 0)
+        & active[:, :, None]
+        & take(roads.valid)
+        & _road_allowed(scene.agents.etype[:, :, None], take(roads.etype))
+    )
+    hit = obb.obb_overlap_sat(
+        state.pos[:, :, None, :], state.yaw[:, :, None], half[:, :, None],
+        take(roads.pos[..., 0:2]), take(roads.yaw), take(roads.scale[..., 0:2]),
+    )
+    return (hit & r_ok).any(dim=-1)
+
+
 def collision_system(
     scene: Scene, state: SimState, params: Params, cur_step: torch.Tensor
 ) -> SimState:
@@ -161,10 +223,6 @@ def collision_system(
 
     ``cur_step`` is the pre-decrement trajectory index [W, A]
     (src/sim.cpp:23-25,640)."""
-    if params.use_collision_grid or params.collision_top_k is not None:
-        raise NotImplementedError(
-            "the collision-grid and collision_top_k branches are not ported"
-        )
     agents = scene.agents
     active = ~_skip_mask(scene, state, cur_step)
     half = agent_half_extents(scene)
@@ -187,12 +245,28 @@ def collision_system(
     any_aa = hit_aa.any(dim=-1)
 
     # ---- agent vs road --------------------------------------------------
-    feat = agent_features(scene, state, active, half)
-    use_tiles = scene.rtiles is not None and params.use_tile_collision is not False
+    use_grid = params.use_collision_grid and scene.grid is not None
+    top_k = params.collision_top_k
+    use_tiles = (
+        scene.rtiles is not None
+        and params.use_tile_collision is not False
+        and not use_grid
+        and top_k is None
+    )
     if use_tiles:
-        any_ar = _tiled_road_hits(scene, state, feat)
+        any_ar = _tiled_road_hits(
+            scene, state, agent_features(scene, state, active, half))
+    elif use_grid:
+        any_ar = _candidate_road_hits(scene, state, active, half,
+                                      _grid_candidates(scene.grid, state))
+    elif top_k is not None and top_k < scene.max_roads:
+        any_ar = _candidate_road_hits(
+            scene, state, active, half,
+            _top_k_candidates(scene, state, active, top_k))
     else:
-        any_ar = agent_road_hits_dense(feat, road_features_t(scene)) > 0.5
+        any_ar = agent_road_hits_dense(
+            agent_features(scene, state, active, half),
+            road_features_t(scene)) > 0.5
 
     one = torch.ones((), dtype=torch.int32, device=active.device)
     return state.replace(

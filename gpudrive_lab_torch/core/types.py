@@ -75,15 +75,17 @@ class Params:
     is_static_agent_controlled: bool = False
     read_from_tracks_to_predict: bool = False
     polyline_reduction_threshold: float = 0.0
-    # Accepted as an alias of exact top-K: the road selection always uses
-    # torch.topk (the JAX package's approx_max_k is a TPU hardware op).
+    # Accepted as an alias of exact top-K: the road selection and the
+    # collision candidates always use torch.topk (the JAX package's
+    # approx_max_k is a TPU hardware op and may drop a collision).
     approx_top_k: bool = False
     # Accepted for parity with the JAX Params; both values fetch the K road
     # winners with the same row gather.
     road_gather: str = "take"
-    # Not ported yet: a value other than None raises in collision_system.
+    # Agent-road candidates: the K road entities of least (center distance
+    # - half length) per agent; None, or K >= R, tests every road.
     collision_top_k: int | None = None
-    # Not ported yet: True raises in collision_system.
+    # Agent-road candidates from the scene's CollisionGrid (Scene.grid).
     use_collision_grid: bool = False
     # Tile-skip agent-road narrow phase (kernel K1).  None = auto: used
     # whenever the scene compiler built Scene.rtiles (road buckets >=
@@ -136,6 +138,19 @@ class AgentsStatic(_TensorData):
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class CollisionGrid(_TensorData):
+    """Scene-static spatial hash over road entities: per world, each coarse
+    cell lists the road indices whose boxes (expanded by the largest agent
+    radius) touch it, so an agent tests only the roads of its own cell
+    (scene/grid.py builds it)."""
+
+    origin: torch.Tensor  # [W, 2] f32 grid lower corner
+    cell_size: torch.Tensor  # [W] f32
+    dims: torch.Tensor  # [W, 2] i32 (gx, gy) used per world
+    table: torch.Tensor  # [W, GY, GX, K] i32 road indices, -1 padding
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class RoadTiles(_TensorData):
     """Scene-static, Morton-sorted road tiles for the tile-skip agent-road
     narrow phase (core/kernels.agent_road_hits_tiled, kernel K1)."""
@@ -157,8 +172,8 @@ class RoadTiles(_TensorData):
 class Scene(_TensorData):
     """One batch of compiled worlds (reference: src/level_gen.cpp).
 
-    ``grid`` (the JAX package's CollisionGrid) stays None until the grid
-    collision path is ported."""
+    ``grid`` is built when ``Params.use_collision_grid`` is set and
+    ``rtiles`` at large road buckets (scene/compiler.build_scene)."""
 
     agents: AgentsStatic
     roads: RoadGraph
@@ -167,7 +182,7 @@ class Scene(_TensorData):
     means: torch.Tensor  # [W, 3] per-world mean subtracted from coords
     map_name: torch.Tensor  # [W, 32] int32 char codes
     scenario_id: torch.Tensor  # [W, 32] int32 char codes
-    grid: None = None
+    grid: CollisionGrid | None = None
     rtiles: RoadTiles | None = None
 
     @property

@@ -143,9 +143,11 @@ class EnvConfig:
     vbd_trajectory_weight: float = 0.01
     vbd_in_obs: bool = False
 
-    # Collision and road-selection options of the JAX package.  The grid
-    # and collision_top_k branches are not ported and raise; approx_top_k
-    # and road_gather are accepted as aliases of the exact path.
+    # Collision and road-selection options of the JAX package.
+    # use_collision_grid tests each agent against the roads of its grid
+    # cell (scene/grid.py), collision_top_k against its K best-scoring
+    # roads; approx_top_k and road_gather are accepted as aliases of the
+    # exact path (torch.topk, one row gather).
     collision_top_k: Optional[int] = None
     approx_top_k: bool = False
     road_gather: str = "take"

@@ -17,6 +17,22 @@ Random streams.  Actions are drawn from ``EnvCarry.rng``, a
 takes the actions (``actions=``) and the update the permutations
 (``perms=``), so the JAX package's draws can drive the port.
 
+World-parallel training.  With a ``group`` (parallel/mesh.WorldGroup of n
+ranks, each holding a contiguous block of the worlds) ``learn`` computes
+what one process computes over the union of the ranks' rows: per
+minibatch the mask sum and the advantage mean, then the variance, are
+summed over the ranks; each rank's loss is its own masked sums over the
+global mask sum; the gradients are summed over the ranks before the
+global-norm clip and Adam, so every rank applies the same update and the
+parameters stay replicated; the returned metrics are the global ones.
+Every rank draws the same minibatch order (the same-seeded
+``perm_generator``); a minibatch is a time slice, so every rank holds its
+part of each.  In flat mode with ``compact_blocks`` a multiple of n, rank
+r's block-local selection is block r of one process's; otherwise each
+rank keeps its share of one process's flat selection (``rank_rows``).
+``minibatch_rows`` cuts the flat axis across ranks and raises with a
+group.
+
 The JAX package's ``unroll`` and ``epoch_preshuffle`` options change only
 how XLA is asked to run the same computation; here they are accepted and
 give the same result as without them.  ``policy_dtype="bfloat16"`` runs the
@@ -46,6 +62,7 @@ from gpudrive_lab_torch.networks.late_fusion import (
     LateFusionPolicy,
     sample_logits,
 )
+from gpudrive_lab_torch.parallel.mesh import WorldGroup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +157,59 @@ def clip_by_global_norm(parameters, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
 
 
+def _global_sum(group: WorldGroup | None, x: torch.Tensor) -> torch.Tensor:
+    return x if group is None else group.all_reduce(x)
+
+
+def normalize_advantages(adv, m, norm_adv: bool,
+                         group: WorldGroup | None = None):
+    """(advantages, msum): the mask sum clamped at 1 and, with
+    ``norm_adv``, the advantages normalised by their masked mean and
+    variance, each sum taken over every rank's rows of the minibatch (the
+    mean's sums first, then the variance's, as one process's loss)."""
+    s = _global_sum(group, torch.stack([m.sum(), (adv * m).sum()]))
+    msum = torch.clamp(s[0], min=1.0)
+    if not norm_adv:
+        return adv, msum
+    mean = s[1] / msum
+    var = _global_sum(group, (((adv - mean) ** 2) * m).sum()[None])[0] / msum
+    return (adv - mean) * torch.rsqrt(var + 1e-8), msum
+
+
+def sync_gradients(parameters, group: WorldGroup) -> None:
+    """Sum the parameters' gradients over the ranks, in one all-reduce of
+    their concatenation; a missing gradient counts as zeros."""
+    params = list(parameters)
+    flat = torch.cat([(p.grad if p.grad is not None
+                       else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    group.all_reduce(flat)
+    o = 0
+    for p in params:
+        p.grad = flat[o:o + p.numel()].view_as(p).clone()
+        o += p.numel()
+
+
+def rank_rows(group: WorldGroup, controlled: torch.Tensor,
+              compact: int) -> torch.Tensor:
+    """This rank's rows of one process's flat selection over all the
+    ranks' worlds (controlled agents in (world, slot) order, then
+    uncontrolled padding rows, cut at ``compact``): their indices on the
+    global flat axis [n_r] (int64, host), in the order of the rank's own
+    selection of ``n_r`` rows.  ``controlled`` is the rank's [W/n, A]
+    mask."""
+    c = int(controlled.sum())
+    u = controlled.numel() - c
+    counts = group.all_gather_ints([c, u])
+    c_before = sum(x[0] for x in counts[:group.rank])
+    u_before = sum(x[1] for x in counts[:group.rank])
+    c_total = sum(x[0] for x in counts)
+    nc = min(max(compact - c_before, 0), c)
+    nu = min(max(compact - c_total - u_before, 0), u)
+    return torch.cat([c_before + torch.arange(nc),
+                      c_total + u_before + torch.arange(nu)])
+
+
 def _map_obs(fn, obs):
     """Apply fn to the obs tensor or to each tensor of the split tuple."""
     return tuple(fn(o) for o in obs) if isinstance(obs, tuple) else fn(obs)
@@ -168,7 +238,8 @@ class PPO:
     def __init__(self, policy: LateFusionPolicy, params: Params,
                  spec: ObsSpec, action_table: torch.Tensor, reward_type: str,
                  config: PPOConfig,
-                 perm_generator: torch.Generator | None = None):
+                 perm_generator: torch.Generator | None = None,
+                 group: WorldGroup | None = None):
         if config.policy_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown policy_dtype {config.policy_dtype!r}")
         if config.obs_store not in ("flat", "split"):
@@ -176,6 +247,18 @@ class PPO:
         self.flat_mode = bool(config.compact) and config.compact_mode == "flat"
         if config.minibatch_rows and not self.flat_mode:
             raise ValueError("minibatch_rows requires compact_mode='flat'")
+        # None: one process (a group of one rank reduces nothing)
+        self.group = group if group is not None and group.size > 1 else None
+        if self.group is not None:
+            if config.minibatch_rows:
+                raise ValueError(
+                    "minibatch_rows cuts row blocks of the flat axis, which "
+                    "span ranks; it is not supported with a process group")
+            nb = config.compact_blocks
+            if self.flat_mode and nb > 1 and nb % self.group.size:
+                raise ValueError(
+                    f"compact_blocks={nb} must be a multiple of the "
+                    f"{self.group.size} ranks")
         self.policy = policy
         self.params = params
         self.spec = spec
@@ -204,21 +287,48 @@ class PPO:
         W, A = ctrl.shape
         key = torch.where(ctrl, 0, 1)
         if self.flat_mode:
-            nb = max(cfg.compact_blocks, 1)
+            nb, compact = max(cfg.compact_blocks, 1), cfg.compact
+            if self.group is not None:
+                if nb > 1:  # this rank's blocks of one process's
+                    if compact % nb:
+                        raise ValueError("compact_blocks must divide "
+                                         "compact")
+                    compact //= self.group.size
+                    nb //= self.group.size
+                else:
+                    compact = len(rank_rows(self.group, ctrl, compact))
             if nb > 1:
-                if W % nb or cfg.compact % nb:
+                if W % nb or compact % nb:
                     raise ValueError("compact_blocks must divide num_worlds "
                                      "and compact")
                 o = torch.argsort(key.reshape(nb, (W // nb) * A), dim=1,
-                                  stable=True)[:, : cfg.compact // nb]
+                                  stable=True)[:, : compact // nb]
                 base = torch.arange(nb, device=o.device)[:, None] * (
                     (W // nb) * A)
                 order = (o + base).reshape(-1)
             else:
                 order = torch.argsort(key.reshape(-1), stable=True)
-                order = order[: cfg.compact]
+                order = order[:compact]
             return order // A, order % A
         return torch.argsort(key, dim=1, stable=True)[:, : cfg.compact]
+
+    def global_rows(self, scene: Scene) -> torch.Tensor:
+        """The indices, on axis 1 of one process's trajectory tensors
+        ([T, W, ...] or [T, N]), of this rank's rows (int64, host): its
+        block of worlds, or its rows of the flat selection.  Slices one
+        process's actions for the rank (``rollout(actions=...)``)."""
+        W = scene.agents.controlled.shape[0]
+        if self.group is None:
+            n = self.config.compact if self.flat_mode else W
+            return torch.arange(n)
+        r, n = self.group.rank, self.group.size
+        if not self.flat_mode:
+            return torch.arange(r * W, (r + 1) * W)
+        if self.config.compact_blocks > 1:
+            k = self.config.compact // n
+            return torch.arange(r * k, (r + 1) * k)
+        return rank_rows(self.group, scene.agents.controlled,
+                         self.config.compact)
 
     def _gather_c(self, x: torch.Tensor, cidx) -> torch.Tensor:
         """[W, A(, d)] -> [W, C(, d)] / [N(, d)] (identity when dense)."""
@@ -415,13 +525,8 @@ class PPO:
         logratio = newlogp - mb["logprob"]
         ratio = torch.exp(logratio)
         m = mb["mask"].to(torch.float32)
-        msum = torch.clamp(m.sum(), min=1.0)
-
-        adv = mb["adv"]
-        if cfg.norm_adv:
-            mean = (adv * m).sum() / msum
-            var = (((adv - mean) ** 2) * m).sum() / msum
-            adv = (adv - mean) * torch.rsqrt(var + 1e-8)
+        adv, msum = normalize_advantages(mb["adv"], m, cfg.norm_adv,
+                                         self.group)
 
         pg1 = -adv * ratio
         pg2 = -adv * torch.clamp(ratio, 1.0 - cfg.clip_coef,
@@ -473,26 +578,37 @@ class PPO:
                 loss, aux = self.loss(mb, ent_coef)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                if self.group is not None:
+                    sync_gradients(self.policy.parameters(), self.group)
                 clip_by_global_norm(self.policy.parameters(),
                                     cfg.max_grad_norm)
                 self.optimizer.step()
                 auxes.append(aux)
-        return {k: torch.stack([a[k] for a in auxes]).reshape(
-            cfg.update_epochs, cfg.num_minibatches) for k in names}
+        # each rank's terms are its own sums over the global mask sum
+        out = _global_sum(self.group, torch.stack(
+            [torch.stack([a[k] for a in auxes]) for k in names]))
+        return {k: out[i].reshape(cfg.update_epochs, cfg.num_minibatches)
+                for i, k in enumerate(names)}
 
     @staticmethod
-    def episode_metrics(traj: Transition) -> dict:
-        """Sample count, mean reward and the finished episodes' outcomes."""
+    def episode_metrics(traj: Transition,
+                        group: WorldGroup | None = None) -> dict:
+        """Sample count, mean reward and the finished episodes' outcomes,
+        over every rank's rows and worlds."""
         mask = traj.mask
-        n_ep = torch.clamp(traj.ep_done.sum(), min=1)
+        counts = _global_sum(group, torch.stack([mask.sum(),
+                                                 traj.ep_done.sum()]))
+        sums = _global_sum(group, torch.stack([
+            (traj.reward * mask).sum(), traj.ep_goal.sum(),
+            traj.ep_collided.sum(), traj.ep_off_road.sum()]))
+        n_ep = torch.clamp(counts[1], min=1)
         return {
-            "mean_reward": (traj.reward * mask).sum()
-            / torch.clamp(mask.sum(), min=1),
-            "samples": mask.sum(),
-            "episodes": traj.ep_done.sum(),
-            "perc_goal_achieved": traj.ep_goal.sum() / n_ep,
-            "perc_collisions": traj.ep_collided.sum() / n_ep,
-            "perc_off_road": traj.ep_off_road.sum() / n_ep,
+            "mean_reward": sums[0] / torch.clamp(counts[0], min=1),
+            "samples": counts[0],
+            "episodes": counts[1],
+            "perc_goal_achieved": sums[1] / n_ep,
+            "perc_collisions": sums[2] / n_ep,
+            "perc_off_road": sums[3] / n_ep,
         }
 
     def update(self, scene: Scene, carry: EnvCarry, traj: Transition,
@@ -504,7 +620,7 @@ class PPO:
         metrics = {k: v.mean() for k, v in self.learn(
             scene, batch, traj, reward_weights, ent_coef, perms,
             row_starts).items()}
-        metrics.update(self.episode_metrics(traj))
+        metrics.update(self.episode_metrics(traj, self.group))
         return metrics
 
     def train_step(self, scene: Scene, carry: EnvCarry, fresh: SimState,

@@ -26,6 +26,15 @@ the update ``perms=`` instead, so the JAX package's draws can drive it.
 As in the JAX trainer, a finished world is reset to ``fresh`` with its
 clock at 0, observations are stored in ``obs_store_dtype`` and cast to
 float32 for the replay, and ``unroll`` is accepted with the same result.
+
+With a ``group`` of n ranks (parallel/mesh.WorldGroup) ``learn`` computes
+what one process computes over the union of the ranks' sequences, as
+``ppo.PPO`` does: the minibatches are a permutation of one process's
+sequences (its worlds, or its flat rows), so they span ranks.  Every rank
+draws the same permutation and keeps its own rows (``global_rows``: its
+block of worlds, or its share of the flat selection found from every
+rank's controlled count, which differ between ranks); a rank with no row
+in a minibatch still joins its sums.
 """
 
 from __future__ import annotations
@@ -46,11 +55,16 @@ from gpudrive_lab_torch.networks.late_fusion import (
     LateFusionLSTMPolicy,
     sample_logits,
 )
+from gpudrive_lab_torch.parallel.mesh import WorldGroup
 from gpudrive_lab_torch.ppo.ppo import (
     PPO,
     PPOConfig,
+    _global_sum,
     clip_by_global_norm,
     compute_gae,
+    normalize_advantages,
+    rank_rows,
+    sync_gradients,
 )
 
 
@@ -95,7 +109,8 @@ class RnnPPO:
     def __init__(self, policy: LateFusionLSTMPolicy, params: Params,
                  spec: ObsSpec, action_table: torch.Tensor, reward_type: str,
                  config: PPOConfig,
-                 perm_generator: torch.Generator | None = None):
+                 perm_generator: torch.Generator | None = None,
+                 group: WorldGroup | None = None):
         self.policy = policy
         self.params = params
         self.spec = spec
@@ -106,6 +121,27 @@ class RnnPPO:
         self.optimizer = torch.optim.Adam(
             policy.parameters(), lr=config.learning_rate, eps=1e-5)
         self.perm_generator = perm_generator or torch.Generator()
+        # None: one process (a group of one rank reduces nothing)
+        self.group = group if group is not None and group.size > 1 else None
+
+    def global_rows(self, scene: Scene) -> torch.Tensor:
+        """The indices, on axis 1 of one process's trajectory tensors
+        ([T, W, ...] or [T, N]), of this rank's sequences (int64, host):
+        its block of worlds, or its rows of the flat selection."""
+        ctrl = scene.agents.controlled
+        if self.group is None:
+            return torch.arange(self.config.compact if self.flat_mode
+                                else ctrl.shape[0])
+        if self.flat_mode:
+            return rank_rows(self.group, ctrl, self.config.compact)
+        W, r = ctrl.shape[0], self.group.rank
+        return torch.arange(r * W, (r + 1) * W)
+
+    def _rows(self, scene: Scene) -> int:
+        """This rank's count of flat rows."""
+        if self.group is None:
+            return self.config.compact
+        return len(self.global_rows(scene))
 
     def ctrl_slots(self, scene: Scene):
         """Flat layout: (w_idx [N], a_idx [N]), the batch's controlled
@@ -116,14 +152,14 @@ class RnnPPO:
         ctrl = scene.agents.controlled
         A = ctrl.shape[1]
         order = torch.argsort(torch.where(ctrl, 0, 1).reshape(-1),
-                              stable=True)[: self.config.compact]
+                              stable=True)[: self._rows(scene)]
         return order // A, order % A
 
     def initial_lstm(self, scene: Scene) -> tuple:
-        """Zero LSTM state for the layout: [compact, H] flat, else one row
-        per agent row of the env [W, A, H]."""
+        """Zero LSTM state for the layout: [compact, H] flat (this rank's
+        rows of them), else one row per agent row of the env [W, A, H]."""
         if self.flat_mode:
-            return self.policy.initialize_carry((self.config.compact,))
+            return self.policy.initialize_carry((self._rows(scene),))
         return self.policy.initialize_carry(
             tuple(scene.agents.controlled.shape))
 
@@ -243,14 +279,10 @@ class RnnPPO:
         logits, newvalue = self.replay(mb["obs"], mb["reset_pre"], init_lstm)
         _, newlogp, entropy = sample_logits(None, logits, mb["action"])
         m = mb["mask"].to(torch.float32)
-        msum = torch.clamp(m.sum(), min=1.0)
         logratio = newlogp - mb["logprob"]
         ratio = torch.exp(logratio)
-        adv = mb["adv"]
-        if cfg.norm_adv:
-            mean = (adv * m).sum() / msum
-            var = (((adv - mean) ** 2) * m).sum() / msum
-            adv = (adv - mean) * torch.rsqrt(var + 1e-8)
+        adv, msum = normalize_advantages(mb["adv"], m, cfg.norm_adv,
+                                         self.group)
         pg1 = -adv * ratio
         pg2 = -adv * torch.clamp(ratio, 1.0 - cfg.clip_coef,
                                  1.0 + cfg.clip_coef)
@@ -273,36 +305,56 @@ class RnnPPO:
                 for _ in range(self.config.update_epochs)]
 
     def learn(self, batch: dict, init_lstm, ent_coef=None,
-              perms=None) -> dict:
+              perms=None, rows=None) -> dict:
         """The update epochs over ``batch`` (from ``prepare``), each
         minibatch replayed from its rows of ``init_lstm`` (the rollout's
         first LSTM state).  ``perms`` [E, M, rows // M] gives the minibatch
-        order.  Returns each loss metric per minibatch, [E, M]."""
+        order over one process's sequences; with a group, ``rows`` are this
+        rank's (``global_rows``).  Returns each loss metric per minibatch,
+        [E, M]."""
         cfg = self.config
         B = batch["mask"].shape[1]
+        dev = batch["mask"].device
+        local = None  # one process's sequence index -> this rank's, or -1
+        if self.group is not None:
+            if rows is None or len(rows) != B:
+                raise ValueError("learn with a group needs this rank's rows "
+                                 "(global_rows)")
+            B = sum(n for (n,) in self.group.all_gather_ints([B]))
+            local = torch.full((B,), -1, dtype=torch.int64)
+            local[rows] = torch.arange(len(rows))
         M = min(cfg.num_minibatches, B)
-        assert B % M == 0, "minibatch axis must divide num_minibatches"
+        if B % M:
+            raise ValueError("minibatch axis must divide num_minibatches")
         if ent_coef is None:
             ent_coef = cfg.ent_coef
         if perms is None:
             perms = self.minibatch_order(B)
         perms = torch.as_tensor(perms).tolist()
-        dev = batch["mask"].device
         auxes = []
         for e in range(cfg.update_epochs):
             for m in range(M):
-                idx = torch.as_tensor(perms[e][m], device=dev)
+                idx = torch.as_tensor(perms[e][m])
+                if local is not None:
+                    idx = local[idx]
+                    idx = idx[idx >= 0]
+                idx = idx.to(dev)
                 mb = {k: v.index_select(1, idx) for k, v in batch.items()}
                 lstm0 = tuple(x.index_select(0, idx) for x in init_lstm)
                 loss, aux = self.loss(mb, lstm0, ent_coef)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                if self.group is not None:
+                    sync_gradients(self.policy.parameters(), self.group)
                 clip_by_global_norm(self.policy.parameters(),
                                     cfg.max_grad_norm)
                 self.optimizer.step()
                 auxes.append(aux)
-        return {k: torch.stack([a[k] for a in auxes]).reshape(
-            cfg.update_epochs, M) for k in LOSS_NAMES}
+        # each rank's terms are its own sums over the global mask sum
+        out = _global_sum(self.group, torch.stack(
+            [torch.stack([a[k] for a in auxes]) for k in LOSS_NAMES]))
+        return {k: out[i].reshape(cfg.update_epochs, M)
+                for i, k in enumerate(LOSS_NAMES)}
 
     def update(self, scene: Scene, carry: RnnCarry, traj: RnnTransition,
                reward_weights: torch.Tensor, init_lstm, ent_coef=None,
@@ -311,8 +363,9 @@ class RnnPPO:
         losses averaged over the minibatches)."""
         batch = self.prepare(scene, carry, traj, reward_weights)
         metrics = {k: v.mean() for k, v in self.learn(
-            batch, init_lstm, ent_coef, perms).items()}
-        metrics.update(PPO.episode_metrics(traj))
+            batch, init_lstm, ent_coef, perms,
+            None if self.group is None else self.global_rows(scene)).items()}
+        metrics.update(PPO.episode_metrics(traj, self.group))
         return metrics
 
     def train_step(self, scene: Scene, carry: RnnCarry, fresh: SimState,

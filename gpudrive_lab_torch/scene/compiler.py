@@ -33,6 +33,7 @@ from gpudrive_lab_torch.core.types import (
     Scene,
 )
 from gpudrive_lab_torch.device import resolve_device
+from gpudrive_lab_torch.scene.grid import build_collision_grid
 from gpudrive_lab_torch.scene.loader import load_map
 from gpudrive_lab_torch.scene.rtiles import (
     TILE_COLLISION_MIN_R,
@@ -406,7 +407,9 @@ def build_scene(
     Road capacity is bucketed to multiples of 256 (an explicit ``max_roads``
     is rounded up to one).  ``max_agents`` buckets the agent axis: None keeps
     the reference's fixed 128 rows; "auto" (or an explicit cap) shrinks it
-    to the batch maximum rounded up to a multiple of 16.  Tensors land on
+    to the batch maximum rounded up to a multiple of 16.  With
+    ``params.use_collision_grid`` the scene also carries the road grid
+    (scene/grid.py); road tiles are built as without it.  Tensors land on
     ``device`` (CUDA unless the caller names another).
     """
     device = resolve_device(device)
@@ -468,10 +471,9 @@ def build_scene(
         ),
         valid=t(r_valid),
     )
+    grid = None
     if params.use_collision_grid:
-        raise NotImplementedError(
-            "the collision-grid path is not ported yet"
-        )
+        grid = build_collision_grid(worlds, device=device)
     rtiles = None
     if params.use_tile_collision is True or (
         params.use_tile_collision is None and R >= TILE_COLLISION_MIN_R
@@ -487,5 +489,6 @@ def build_scene(
         means=t(np.stack([w.mean for w in worlds])),
         map_name=t(np.stack([w.map_name for w in worlds])),
         scenario_id=t(np.stack([w.scenario_id for w in worlds])),
+        grid=grid,
         rtiles=rtiles,
     )

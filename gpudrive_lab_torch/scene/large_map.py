@@ -11,7 +11,9 @@ active vehicles placed on the roads within ``AGENT_RADIUS`` of a random
 centre, as a scenario's agents gather around its ego vehicle.  The build is
 host numpy from one seed; the tiles come from
 ``scene/rtiles.build_road_tiles`` and the agent order and mask from the
-step's own ``core/collision.tile_mask_and_order``.
+step's own ``core/collision.tile_mask_and_order``.  ``large_map_scene``
+gives the same map as a ``Scene`` (with road tiles and the collision grid)
+for the step's own collision pass over every agent-road path.
 """
 
 from __future__ import annotations
@@ -24,8 +26,15 @@ import torch
 
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core.collision import tile_mask_and_order
-from gpudrive_lab_torch.core.types import RoadTiles
+from gpudrive_lab_torch.core.types import (
+    AgentsStatic,
+    RoadGraph,
+    RoadTiles,
+    Scene,
+    SimState,
+)
 from gpudrive_lab_torch.device import resolve_device
+from gpudrive_lab_torch.scene.grid import build_collision_grid
 from gpudrive_lab_torch.scene.rtiles import ROAD_TILE, build_road_tiles
 
 # The map of chip_smoke.py's large-map phase: 512 worlds of 128 agent rows
@@ -60,13 +69,12 @@ class LargeMap:
                 f"vehicles of {p['A']} agent rows per world; seed {p['seed']}")
 
 
-def large_map(W: int, A: int, R: int, n_active: int, side: float = 400.0,
-              seed: int = 0, device=None) -> LargeMap:
-    """Build the map (R a multiple of 256, A of 16, n_active <= A) on
-    ``device``: CUDA unless the caller names another."""
+def _generate(W: int, A: int, R: int, n_active: int, side: float,
+              seed: int) -> dict:
+    """The map's host arrays from ``seed``: roads (pos [W, R, 3], yaw,
+    scale, etype) and the agent kernel rows [W, A, 8]."""
     if R % ROAD_TILE or R % SEGMENTS_PER_POLYLINE or A % 16 or n_active > A:
         raise ValueError(f"W={W} A={A} R={R} n_active={n_active}")
-    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_poly = R // SEGMENTS_PER_POLYLINE
     # polylines: a random start and heading, the heading drifting per step
@@ -90,8 +98,6 @@ def large_map(W: int, A: int, R: int, n_active: int, side: float = 400.0,
     scale[..., 1:] = 0.1
     scale[stop] = (0.5, 0.5, 0.1)
     pos = np.concatenate([mid, np.zeros((W, R, 1))], -1).astype(np.float32)
-    rt = build_road_tiles(pos, yaw.astype(np.float32), scale, etype,
-                          np.ones((W, R), bool), device=device)
 
     # active vehicles on random segments near a centre, the rest padding rows
     centre = rng.uniform(AGENT_RADIUS, side - AGENT_RADIUS, (W, 1, 2))
@@ -113,7 +119,20 @@ def large_map(W: int, A: int, R: int, n_active: int, side: float = 400.0,
                                                             (W, n_active))
     agents[:, :n_active, 6] = 1.0
     agents[:, :, 7] = 1.0
-    feat = torch.from_numpy(agents).to(device)
+    return dict(pos=pos, yaw=yaw.astype(np.float32), scale=scale,
+                etype=etype, agents=agents, a_yaw=a_yaw.astype(np.float32),
+                stop_signs=int(stop.sum()))
+
+
+def large_map(W: int, A: int, R: int, n_active: int, side: float = 400.0,
+              seed: int = 0, device=None) -> LargeMap:
+    """Build the map (R a multiple of 256, A of 16, n_active <= A) on
+    ``device``: CUDA unless the caller names another."""
+    g = _generate(W, A, R, n_active, side, seed)
+    device = resolve_device(device)
+    rt = build_road_tiles(g["pos"], g["yaw"], g["scale"], g["etype"],
+                          np.ones((W, R), bool), device=device)
+    feat = torch.from_numpy(g["agents"]).to(device)
 
     T = R // ROAD_TILE
     roads_t = rt.feat.permute(0, 2, 1, 3).reshape(W, 8, R).contiguous()
@@ -121,7 +140,78 @@ def large_map(W: int, A: int, R: int, n_active: int, side: float = 400.0,
         types.SimpleNamespace(rtiles=rt),
         types.SimpleNamespace(pos=feat[..., 0:2]), feat)
     params = dict(W=W, A=A, R=R, T=T, n_active=n_active, side=side,
-                  seed=seed, edges=float((etype == C.ET_ROAD_EDGE).mean()),
-                  stop_signs=int(stop.sum()))
+                  seed=seed, edges=float((g["etype"] == C.ET_ROAD_EDGE).mean()),
+                  stop_signs=g["stop_signs"])
     return LargeMap(feat, roads_t, rt, feat_s.contiguous(), mask, inv_perm,
                     params)
+
+
+def large_map_scene(W: int, A: int, R: int, n_active: int,
+                    side: float = 400.0, seed: int = 0, device=None,
+                    grid: bool = True):
+    """The same map (same seed, same roads and vehicles as ``large_map``)
+    as a Scene and the SimState of one collision pass: roads in their
+    generation order with road tiles and, with ``grid``, the collision
+    grid built from the road arrays; the n_active vehicles controlled and
+    valid, the other rows padding.  Returns (scene, state, cur_step) for
+    ``core.collision.collision_system``, on ``device`` (CUDA unless the
+    caller names another)."""
+    g = _generate(W, A, R, n_active, side, seed)
+    device = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    valid = np.zeros((W, A), bool)
+    valid[:, :n_active] = True
+    ag = g["agents"]
+    size = np.zeros((W, A, 3), np.float32)
+    size[..., 0:2] = ag[..., 4:6] / np.float32(0.5 * C.VEHICLE_LENGTH_SCALE)
+    size[..., 2] = 1.5
+    yaw = np.zeros((W, A), np.float32)
+    yaw[:, :n_active] = g["a_yaw"]
+    zf = np.zeros((W, A), np.float32)
+    zi = np.zeros((W, A), np.int32)
+    agents = AgentsStatic(
+        valid=t(valid), etype=t(np.where(valid, C.ET_VEHICLE, 0)
+                                 .astype(np.int32)),
+        size=t(size), goal=t(np.zeros((W, A, 2), np.float32)),
+        aid=t(np.where(valid, np.arange(A), -1).astype(np.int32)),
+        controlled=t(valid), static=t(np.zeros((W, A), bool)),
+        mark_as_expert=t(np.zeros((W, A), bool)),
+        metadata=t(np.zeros((W, A, 4), np.int32)),
+        traj_pos=t(ag[:, :, None, 0:2]), traj_vel=t(np.zeros((W, A, 1, 2),
+                                                             np.float32)),
+        traj_yaw=t(yaw[..., None]), traj_valid=t(valid[..., None]
+                                                 .astype(np.float32)),
+        traj_inv_actions=t(np.zeros((W, A, 1, C.ACTION_DIM), np.float32)),
+    )
+    rvalid = np.ones((W, R), bool)
+    roads = RoadGraph(pos=t(g["pos"]), yaw=t(g["yaw"]), scale=t(g["scale"]),
+                      etype=t(g["etype"].astype(np.int32)),
+                      rid=t(np.zeros((W, R), np.int32)),
+                      map_type=t(np.zeros((W, R), np.int32)), valid=t(rvalid))
+    scene = Scene(
+        agents=agents, roads=roads,
+        num_agents=t(np.full(W, n_active, np.int32)),
+        num_roads=t(np.full(W, R, np.int32)),
+        means=t(np.zeros((W, 3), np.float32)),
+        map_name=t(np.zeros((W, 32), np.int32)),
+        scenario_id=t(np.zeros((W, 32), np.int32)),
+        grid=build_collision_grid(
+            [({"pos": g["pos"][w], "yaw": g["yaw"][w],
+               "scale": g["scale"][w]}, R) for w in range(W)],
+            device=device) if grid else None,
+        rtiles=build_road_tiles(g["pos"], g["yaw"], g["scale"], g["etype"],
+                                rvalid, device=device),
+    )
+    state = SimState(
+        pos=t(ag[..., 0:2]), z=t(np.ones((W, A), np.float32)), yaw=t(yaw),
+        vel=t(np.zeros((W, A, 2), np.float32)), ang_vel=t(zf),
+        collided=t(zi), done=t(zi), collided_road=t(zi),
+        collided_vehicle=t(zi), collided_non_vehicle=t(zi),
+        reached_goal=t(zi), steps_remaining=t(np.full((W, A), 91, np.int32)),
+        reward=t(zf),
+    )
+    return scene, state, torch.zeros((W, A), dtype=torch.int32,
+                                     device=device)

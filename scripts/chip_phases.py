@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Run phases of chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 scripts/chip_phases.py [il] [rnn] [vbd] [periphery] [ingest]
+    python3 scripts/chip_phases.py [il] [rnn] [vbd] [periphery] [ingest] \
+        [collision] [multi]
 
-With no argument it runs the il, rnn, vbd, periphery and ingest phases, in
-that order (the ingest phase builds the native scene compiler itself).
+With no argument it runs the il, rnn, vbd, periphery, ingest, collision
+and multi phases, in that order (the ingest phase builds the native scene
+compiler itself; the kernels build at their first launch, in the multi
+phase in this process before its ranks start).
 Prints the card's name and power limit, the Python, torch and CUDA
 versions, each phase's lines and its wall time, and last the launch counts
 of the phases as one JSON line.  Exits non-zero when a check of a phase
@@ -29,7 +32,8 @@ def main() -> int:
     import chip_smoke as cs
 
     phases = {"il": cs.il_phase, "rnn": cs.rnn_phase, "vbd": cs.vbd_phase,
-              "periphery": cs.periphery_phase, "ingest": cs.ingest_phase}
+              "periphery": cs.periphery_phase, "ingest": cs.ingest_phase,
+              "collision": cs.collision_phase, "multi": cs.multi_phase}
     names = sys.argv[1:] or list(phases)
     unknown = [n for n in names if n not in phases]
     if unknown:

@@ -1031,3 +1031,56 @@ def test_load_pretrained_on_card_matches_cpu(dev, tmp_path):
     assert fe.fused_embed_pool_fwd.launches > before
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_grid_and_top_k_on_card_match_cpu(dev):
+    """One collision pass on a small large map (4 worlds x 10,240 roads)
+    under the grid and top-K (K = 32 and 2) on the card, against the same
+    pass on the CPU, and against K1 and K2 on the card; neither launches
+    K1 or K2."""
+    import dataclasses
+
+    from gpudrive_lab_torch.core.collision import collision_system
+    from gpudrive_lab_torch.core.types import CollisionBehaviour, Params
+    from gpudrive_lab_torch.scene.large_map import large_map_scene
+
+    kw = dict(W=4, A=32, R=10240, n_active=24, seed=0)
+    base = Params(collision_behaviour=CollisionBehaviour.IGNORE)
+    card = large_map_scene(**kw, device=dev)
+    cpu = large_map_scene(**kw, device="cpu")
+    want = collision_system(*card[:2], base, card[2]).collided_road
+    dense = collision_system(*card[:2], dataclasses.replace(
+        base, use_tile_collision=False), card[2]).collided_road
+    assert torch.equal(want, dense)
+    for p in (dataclasses.replace(base, use_collision_grid=True),
+              dataclasses.replace(base, collision_top_k=32),
+              dataclasses.replace(base, collision_top_k=2)):
+        before = (kernels.agent_road_hits_dense.launches,
+                  kernels.agent_road_hits_tiled.launches)
+        got = collision_system(*card[:2], p, card[2]).collided_road
+        assert (kernels.agent_road_hits_dense.launches,
+                kernels.agent_road_hits_tiled.launches) == before
+        assert torch.equal(got.cpu(), collision_system(*cpu[:2], p,
+                                                       cpu[2]).collided_road)
+        assert torch.equal(got, want)
+
+
+def test_sharded_learners_on_card_match_one_process(dev):
+    """The three learner configurations of parallel/dryrun.py on 2 gloo
+    ranks sharing the card, 2 pool worlds each, a narrow head: at the
+    dryrun's bars, the ranks' parameters bitwise equal, K2 launched on
+    every rank and K3/K4 (and their bf16 modes) in configurations 1 and
+    2."""
+    from gpudrive_lab_torch.parallel.dryrun import dryrun_multiprocess
+
+    report = dryrun_multiprocess(2, dev, worlds_per_rank=2,
+                                 widths=dict(hidden_dim=32), lstm_hidden=16,
+                                 backend="gloo", timeout=300)
+    assert report["backend"] == "gloo"
+    for name in ("dense", "flat+bf16+dot+swap", "rnn-flat"):
+        for n in report[name]["launches"]:
+            assert n["K2"] > 0
+            if name == "dense":
+                assert n["K3"] > 0 and n["K4"] > 0
+            if name.startswith("flat"):
+                assert n["K3-bf16"] > 0 and n["K4-bf16"] > 0

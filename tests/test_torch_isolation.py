@@ -34,7 +34,7 @@ def test_importing_every_module_loads_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 97  # every module was imported
+    assert int(out.stdout.split()[0]) >= 103  # every module was imported
 
 
 def test_walk_covers_the_dataset_slice():
@@ -96,6 +96,29 @@ def test_walk_covers_the_periphery_slice():
                  "scene.synthetic", "networks.basic_ffn",
                  "networks.perm_eq_late_fusion"):
         assert "gpudrive_lab_torch." + name in mods, name
+
+
+def test_walk_covers_the_collision_and_parallel_slice():
+    """The grid and the world-parallel modules are among those imported,
+    and importing them starts no process group."""
+    import pkgutil
+
+    import gpudrive_lab_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        gpudrive_lab_torch.__path__, "gpudrive_lab_torch.")}
+    for name in ("scene.grid", "parallel", "parallel.mesh",
+                 "parallel.distributed", "parallel.dryrun",
+                 "parallel.scaling"):
+        assert "gpudrive_lab_torch." + name in mods, name
+    code = ("import torch.distributed as d\n"
+            "import gpudrive_lab_torch.parallel.dryrun\n"
+            "import gpudrive_lab_torch.parallel.scaling\n"
+            "print(d.is_initialized())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.split() == ["False"], (
+        out.stdout + out.stderr)
 
 
 def _imported_roots(path):
