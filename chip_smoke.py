@@ -1808,6 +1808,10 @@ VBD_WORLDS = 64  # worlds of the env and of the official model's batch
 VBD_GUIDED_WORLDS = 4  # worlds of each guided sampler's run
 VBD_CPU_WORLDS = 2  # worlds whose encoder and denoise step meet the CPU's
 VBD_TRAIN_STEPS = 20  # Adam steps on denoise_loss
+# the card against the CPU in a half compute dtype: the bar of
+# tests/test_torch_vbd_dtype.py's model outputs, 6 units of roundoff (the
+# same one-ulp rounding flips where sums run in another order)
+VBD_DTYPE_CPU_BAR = {"bfloat16": 6 * 2.0 ** -8, "float16": 6 * 2.0 ** -11}
 
 
 class CallTimer:
@@ -1858,6 +1862,106 @@ class CallTimer:
         return out
 
 
+def vbd_tpu_first_sample(env, vcfg, dev) -> tuple:
+    """A VBDTrajectorySource of the TPU-first model at ``vcfg`` (its
+    compute dtype; weights seeded SEED, the same in every dtype) into
+    env.set_vbd_trajectories on the env's worlds: the sample batch (host),
+    each encoder and denoiser call and the whole sample timed with CUDA
+    events, peak memory beside.  Checks the trajectories finite, one
+    denoiser call a diffusion step and at least one agent row predicted.
+    Returns (the model, its record)."""
+    import torch
+
+    from gpudrive_lab_torch.vbd import integration
+    from gpudrive_lab_torch.vbd import model as vmodel
+
+    name = str(vcfg.dtype).removeprefix("torch.")
+    vbd = vmodel.VBDModel(vcfg, device=dev,
+                          generator=torch.Generator().manual_seed(SEED))
+    vbd.eval()
+    src = integration.VBDTrajectorySource(
+        vbd, vmodel.DDPMScheduler(vcfg.diffusion_steps), vcfg, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    with CallTimer([("batch", integration, "process_scenario_data"),
+                    ("sample", integration, "sample_denoiser"),
+                    ("encode", vbd.encoder, "forward"),
+                    ("denoise", vbd.denoiser, "forward")]) as ct:
+        t0 = time.time()
+        env.set_vbd_trajectories(src)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tot = ct.totals()
+    traj = env.vbd_trajectories
+    check(tuple(traj.shape) == (env.num_worlds, env.max_agent_count, 91, 5)
+          and traj.dtype == torch.float32 and bool(torch.isfinite(traj).all()),
+          f"vbd: {name} VBDTrajectorySource trajectories")
+    rows = int((traj.abs().sum((-1, -2)) > 0).sum())
+    check(rows > 0, f"vbd: {name}: no agent row was predicted")
+    check(tot["denoise"][1] == vcfg.diffusion_steps,
+          f"vbd: {name}: {tot['denoise'][1]} denoiser calls")
+    rec = dict(dtype=name, wall_s=wall, peak_gb=peak, base_gb=base,
+               batch_ms=tot["batch"][0], sample_ms=tot["sample"][0],
+               encode_ms=tot["encode"][0] / tot["encode"][1],
+               denoise_step_ms=tot["denoise"][0] / tot["denoise"][1],
+               steps=tot["denoise"][1], rows=rows)
+    print(f"[vbd] VBDTrajectorySource, VBDConfig(dtype={name}) "
+          f"({vcfg.encoder_layers} layers, {vcfg.hidden_dim} wide, "
+          f"{vcfg.num_heads} heads, {vcfg.agents_len} agents, "
+          f"{vcfg.diffusion_steps} steps) on {env.num_worlds} worlds: sample "
+          f"batch {rec['batch_ms']:.1f} ms (host), sample "
+          f"{rec['sample_ms']:.2f} ms: encode {rec['encode_ms']:.3f} ms and "
+          f"denoise {rec['denoise_step_ms']:.3f} ms a step (the sampler "
+          f"encodes at every step; CUDA events); wall {wall:.3f} s; peak "
+          f"memory {peak:.3f} GB ({base:.3f} GB held before); {rows} agent "
+          f"rows predicted")
+    return vbd, rec
+
+
+def vbd_dtype_against_cpu(batch, dev, dtype) -> dict:
+    """VBDConfig()'s encoder and one denoiser forward in compute dtype
+    ``dtype`` on the card and on the CPU, the same seeded weights and
+    inputs: max |card - CPU| over max |CPU| of the tokens and of the
+    denoised actions (float32 both), held to VBD_DTYPE_CPU_BAR."""
+    import torch
+
+    from gpudrive_lab_torch.vbd import model as vmodel
+
+    cfg = vmodel.VBDConfig(dtype=dtype)
+    name = str(dtype).removeprefix("torch.")
+    card = vmodel.VBDModel(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(SEED))
+    cpu = vmodel.VBDModel(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    n = VBD_CPU_WORLDS
+    x = torch.randn((n, cfg.agents_len, cfg.action_blocks, 2),
+                    generator=torch.Generator().manual_seed(SEED))
+    step = torch.full((n, cfg.agents_len), cfg.diffusion_steps - 1)
+    outs = []
+    for m, d in ((card, dev), (cpu, torch.device("cpu"))):
+        b = {k: v[:n].to(d) for k, v in batch.items()}
+        with torch.no_grad():
+            tokens, valid = m.encode(b)
+            den = m.denoiser(tokens, valid, x.to(d), step.to(d))
+        outs.append({"tokens": tokens.cpu(), "denoise": den.cpu()})
+    errs = {k: float((outs[0][k] - v).abs().max() / v.abs().max())
+            for k, v in outs[1].items()}
+    bar = VBD_DTYPE_CPU_BAR[name]
+    mm = torch.backends.cuda.matmul
+    check(all(v == v for v in errs.values()) and max(errs.values()) <= bar,
+          f"vbd: {name} on the card differs from the CPU: {errs}")
+    print(f"[vbd] VBDConfig(dtype={name}) encoder and one denoise step on "
+          f"{n} worlds, card against CPU: max |diff| / max |CPU| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (bar {bar:.3g}: tests/test_torch_vbd_dtype.py's 6 u); "
+          f"cuBLAS reduced-precision reductions allowed: bf16 "
+          f"{mm.allow_bf16_reduced_precision_reduction}, fp16 "
+          f"{mm.allow_fp16_reduced_precision_reduction}")
+    return errs
+
+
 def vbd_phase(root: str, dev) -> dict:
     """VBD diffusion sim agents on the card.  The env on the first
     VBD_WORLDS pool_v3 worlds, 128 agent rows, use_vbd with vbd_in_obs and
@@ -1868,13 +1972,19 @@ def vbd_phase(root: str, dev) -> dict:
     timed with CUDA events, peak memory beside the phase's reckoning;
     (2) 91 env steps on expert actions with the VBD obs and reward, K2
     against its plain version at the last state; (3) a VBDTrajectorySource
-    with VBDConfig() (10 steps); (4) one ctg, one waymo and one ibr run on
-    VBD_GUIDED_WORLDS worlds; (5) VBD_TRAIN_STEPS Adam steps on
-    denoise_loss (finite, falling); (6) on VBD_CPU_WORLDS worlds the
-    full-width encoder and one denoise step on the card against the same
-    functions on the CPU, TF32 off (1e-4 of the largest magnitude).  The
-    launch counts are set to 0 at the start; the check's launches are
-    left out.  Returns {launches, ...}."""
+    with VBDConfig() (10 steps), then (3b) with VBDConfig(dtype=bfloat16),
+    each timed (encode, each denoise step, the sample; peak memory), and
+    91 expert env steps on the bf16 trajectories (K2 counted); (4) one
+    ctg, one waymo and one ibr run on VBD_GUIDED_WORLDS worlds, (4b) ctg in
+    bf16; (5) VBD_TRAIN_STEPS Adam steps on denoise_loss (finite, falling),
+    (5b) the same in bf16 (float32 parameters); (6) on VBD_CPU_WORLDS
+    worlds the full-width official encoder and one denoise step on the card
+    against the same functions on the CPU, TF32 off (1e-4 of the largest
+    magnitude), (6b) VBDConfig()'s encoder and one denoise step in bf16 and
+    in float16 likewise (VBD_DTYPE_CPU_BAR).  The launch counts are set to
+    0 at the start and again before (3b)'s env steps; the checks' launches
+    are left out.  Returns {launches (the phase's), bf16_launches (3b's
+    steps), ...}."""
     import torch
 
     from gpudrive_lab_torch.env.config import EnvConfig
@@ -1977,23 +2087,43 @@ def vbd_phase(root: str, dev) -> dict:
     uncounted(lambda: k2_against_plain(env, "at the vbd env's last state",
                                        "[vbd]"))
 
-    # (3) the TPU-first denoiser at VBDConfig() defaults
+    # (3) the TPU-first denoiser at VBDConfig() defaults, float32
     vcfg = vmodel.VBDConfig()
-    vbd = vmodel.VBDModel(vcfg, device=dev,
-                          generator=torch.Generator().manual_seed(SEED))
-    vbd.eval()
-    src = integration.VBDTrajectorySource(
-        vbd, vmodel.DDPMScheduler(vcfg.diffusion_steps), vcfg, seed=SEED)
+    vbd, results["tpu_first"] = vbd_tpu_first_sample(env, vcfg, dev)
+    results["vbd_source_s"] = results["tpu_first"]["wall_s"]
+    # (3b) the same model, weights and state in bf16
+    bcfg = vmodel.VBDConfig(dtype=torch.bfloat16)
+    vbd_bf16, results["tpu_first_bf16"] = vbd_tpu_first_sample(env, bcfg,
+                                                                dev)
+    f32, b16 = results["tpu_first"], results["tpu_first_bf16"]
+    print(f"[vbd] bf16 over float32: sample "
+          f"{b16['sample_ms'] / f32['sample_ms']:.3f}x, encode "
+          f"{b16['encode_ms'] / f32['encode_ms']:.3f}x, denoise step "
+          f"{b16['denoise_step_ms'] / f32['denoise_step_ms']:.3f}x, peak "
+          f"memory above the held {(b16['peak_gb'] - b16['base_gb']):.3f} "
+          f"against {(f32['peak_gb'] - f32['base_gb']):.3f} GB")
+    # 91 expert env steps on the bf16 trajectories, K2 counted
+    env.reset()
+    set_counts(dict.fromkeys(counts(), 0))
     torch.cuda.synchronize()
     t0 = time.time()
-    env.set_vbd_trajectories(src)
+    for t in range(STEPS):
+        env.step_dynamics(acts[:, :, t])
+        obs = env.get_obs()
+        rew = env.get_rewards()
     torch.cuda.synchronize()
-    results["vbd_source_s"] = time.time() - t0
-    check(bool(torch.isfinite(env.vbd_trajectories).all()),
-          "vbd: VBDTrajectorySource trajectories not finite")
-    print(f"[vbd] VBDTrajectorySource (VBDConfig(): {vcfg.encoder_layers} "
-          f"layers, {vcfg.hidden_dim} wide, {vcfg.diffusion_steps} steps) "
-          f"on {W} worlds: {results['vbd_source_s']:.3f} s")
+    results["bf16_env_step_ms"] = (time.time() - t0) * 1e3 / STEPS
+    results["bf16_launches"] = counts()
+    check(bool(torch.isfinite(obs).all() and torch.isfinite(rew).all()),
+          "vbd: obs or rewards on the bf16 trajectories not finite")
+    check(results["bf16_launches"]["K2"] > 0,
+          "vbd: the env steps on the bf16 trajectories did not launch K2")
+    print(f"[vbd] {STEPS} expert steps on the bf16 trajectories: "
+          f"{results['bf16_env_step_ms']:.3f} ms a step (host clock); reward "
+          f"sum at the last step {float(rew.sum()):.3f}; launches "
+          f"{results['bf16_launches']}")
+    results["launches"] = {k: v + results["bf16_launches"][k]
+                           for k, v in results["launches"].items()}
 
     # (4) the guided samplers on a few worlds
     batch = process_scenario_data(env.scene, env.state, 0,
@@ -2025,6 +2155,19 @@ def vbd_phase(root: str, dev) -> dict:
         print(f"[vbd] {mode} guided sampling on {VBD_GUIDED_WORLDS} worlds, "
               f"{vcfg.diffusion_steps} steps, {kw.get('guidance_iter')} "
               f"guidance iterations: {results['guided_s'][mode]:.3f} s")
+    # (4b) ctg in bf16
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = guidance.sample_denoiser_guided(
+        vbd_bf16, sched, small, bcfg, torch.Generator(dev).manual_seed(SEED),
+        guidance=[guidance.goal_guidance(goals),
+                  guidance.collision_guidance()], guidance_iter=2)
+    torch.cuda.synchronize()
+    results["guided_s"]["ctg_bf16"] = time.time() - t0
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          "vbd: the bf16 ctg sampler's output is not finite")
+    print(f"[vbd] ctg guided sampling in bf16 on {VBD_GUIDED_WORLDS} worlds: "
+          f"{results['guided_s']['ctg_bf16']:.3f} s")
 
     # (5) denoise_loss with Adam: the log's future as ground truth
     ag = env.scene.agents
@@ -2034,25 +2177,32 @@ def vbd_phase(root: str, dev) -> dict:
         ..., None, None].expand(-1, -1, vcfg.future_len, 5))
     gt = vmodel.inverse_roll_out(fut, vmodel.current_states(
         batch, vcfg.agents_len), action_len=vcfg.action_len)
-    vbd.train()
-    opt = torch.optim.Adam(vbd.parameters(), lr=1e-3)
-    gen = torch.Generator(dev).manual_seed(SEED)
-    losses = []
-    t0 = time.time()
-    for _ in range(VBD_TRAIN_STEPS):
-        loss = vmodel.denoise_loss(vbd, sched, batch, gt, vcfg, gen)
-        opt.zero_grad()
-        loss.backward()
-        opt.step()
-        losses.append(float(loss.detach()))
-    train_s = time.time() - t0
-    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    check(all(torch.isfinite(torch.tensor(losses))) and last < first,
-          f"vbd: denoise_loss did not fall: {losses}")
-    results["train"] = dict(losses=losses, s=train_s)
-    print(f"[vbd] {VBD_TRAIN_STEPS} Adam steps on denoise_loss ({W} worlds, "
-          f"VBDConfig()): loss {losses[0]:.4f} -> {losses[-1]:.4f} (means of "
-          f"the first and last 5: {first:.4f}, {last:.4f}); {train_s:.2f} s")
+    for key, m, cfg in (("train", vbd, vcfg), ("train_bf16", vbd_bf16, bcfg)):
+        m.train()
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(VBD_TRAIN_STEPS):
+            loss = vmodel.denoise_loss(m, sched, batch, gt, cfg, gen)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        train_s = time.time() - t0
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        name = str(cfg.dtype).removeprefix("torch.")
+        check(all(torch.isfinite(torch.tensor(losses))) and last < first,
+              f"vbd: {name} denoise_loss did not fall: {losses}")
+        check(all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                  for p in m.parameters() if p.grad is not None),
+              f"vbd: {name} parameters or gradients not float32")
+        results[key] = dict(losses=losses, s=train_s)
+        print(f"[vbd] {VBD_TRAIN_STEPS} Adam steps on denoise_loss ({W} "
+              f"worlds, VBDConfig(dtype={name}); float32 parameters): loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (means of the first and "
+              f"last 5: {first:.4f}, {last:.4f}); {train_s:.2f} s")
 
     # (6) the full-width encoder and one denoise step, card against CPU
     n = VBD_CPU_WORLDS
@@ -2078,6 +2228,10 @@ def vbd_phase(root: str, dev) -> dict:
     print(f"[vbd] full-width encoder and one denoise step on {n} worlds, "
           f"card against CPU (TF32 off): max |diff| / max |CPU| "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + " (bar 1e-4)")
+    # (6b) the TPU-first model in bf16 and float16, card against CPU
+    results["dtype_cpu_err"] = {
+        str(dt).removeprefix("torch."): vbd_dtype_against_cpu(batch, dev, dt)
+        for dt in (torch.bfloat16, torch.float16)}
     launches = results["launches"]
     print(f"[vbd] launches in the phase: {launches}")
     check(launches["K2"] > 0, "the vbd phase did not launch K2")

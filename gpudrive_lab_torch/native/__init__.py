@@ -140,6 +140,21 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether scenes compile natively here: the native path is enabled
+    (``enabled()``) and the library builds and loads.  Unlike ``load`` it
+    does not raise; it answers what the JAX package's ``available`` does,
+    for callers that choose a path or skip (a later ``load`` raises with
+    the reason)."""
+    if not enabled():
+        return False
+    try:
+        load()
+    except RuntimeError:
+        return False
+    return True
+
+
 def fallbacks() -> int:
     """Scenes the C++ parser declined since the last ``reset_fallbacks``
     (each one compiled with the Python path instead)."""

@@ -33,7 +33,6 @@ to bf16; logits and value are cast to float32 at the end.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch import nn
@@ -41,7 +40,10 @@ from torch.utils.checkpoint import checkpoint
 
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.device import resolve_device
+from gpudrive_lab_torch.networks.flax_dtype import dense, gelu, layer_norm
 from gpudrive_lab_torch.networks.fused_embed import LN_EPS, fused_embed_pool
+
+BF16 = torch.bfloat16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,47 +86,16 @@ def _embed(in_dim: int, dim: int, act: str) -> nn.Sequential:
     )
 
 
-def _dense_bf16(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """flax Dense(dtype=bfloat16): the bf16 product, then the bias added
-    in bf16 (two roundings)."""
-    bf = torch.bfloat16
-    return torch.matmul(x.to(bf), lin.weight.t().to(bf)) + lin.bias.to(bf)
-
-
-def _layer_norm_bf16(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax LayerNorm(dtype=bfloat16): float32 statistics with the fast
-    variance, (x - mean) * (rsqrt(var + eps) * scale) + bias in float32,
-    then cast to bf16."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    mul = torch.rsqrt(var + ln.eps) * ln.weight
-    return ((xf - mu) * mul + ln.bias).to(torch.bfloat16)
-
-
-def _bf16_value(v: float) -> float:
-    return torch.tensor(v, dtype=torch.bfloat16).item()
-
-
-# jax.nn.gelu's constants as its bf16 arithmetic takes them
-_GELU_C = _bf16_value((2.0 / math.pi) ** 0.5)
-_GELU_A = _bf16_value(0.044715)
-
-
 def _act_bf16(act: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """The activation on bf16, as flax runs it: tanh, or jax.nn.gelu's
-    tanh form op by op in bf16 with its constants rounded to bf16 (not
-    torch's gelu, which computes in float32 with the exact constants)."""
-    if isinstance(act, nn.Tanh):
-        return torch.tanh(x)
-    u = _GELU_C * (x + _GELU_A * (x * x * x))
-    return x * (0.5 * (1.0 + torch.tanh(u)))
+    tanh form op by op in bf16 (``flax_dtype.gelu``)."""
+    return torch.tanh(x) if isinstance(act, nn.Tanh) else gelu(x, BF16)
 
 
 def _embed_bf16(embed: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     lin1, ln, act, _, lin2 = embed
-    return _dense_bf16(
-        lin2, _act_bf16(act, _layer_norm_bf16(ln, _dense_bf16(lin1, x))))
+    return dense(lin2, _act_bf16(act, layer_norm(ln, dense(lin1, x, BF16),
+                                                 BF16)), BF16)
 
 
 def _embed_max(embed: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
@@ -215,9 +186,9 @@ class LateFusionPolicy(nn.Module):
             dim=-1,
         )
         if self.bf16:
-            hidden = _dense_bf16(self.shared_embed[0], feats)
-            logits = _dense_bf16(self.actor, hidden).float()
-            value = _dense_bf16(self.critic, hidden).float()[..., 0]
+            hidden = dense(self.shared_embed[0], feats, BF16)
+            logits = dense(self.actor, hidden, BF16).float()
+            value = dense(self.critic, hidden, BF16).float()[..., 0]
         else:
             hidden = self.shared_embed(feats)
             logits = self.actor(hidden)
@@ -332,17 +303,16 @@ class LateFusionLSTMPolicy(nn.Module):
             m = (1.0 - done)[..., None]
             c, h = c * m, h * m
         if self.bf16:
-            bf = torch.bfloat16
-            gates = (_dense_bf16(self.lstm_h, h)
-                     + torch.matmul(feats.to(bf), self.lstm_i.weight.t().to(bf)))
+            gates = (dense(self.lstm_h, h, BF16) + torch.matmul(
+                feats.to(BF16), self.lstm_i.weight.t().to(BF16)))
         else:
             gates = self.lstm_h(h) + self.lstm_i(feats)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         if self.bf16:
-            logits = _dense_bf16(self.actor, h).float()
-            value = _dense_bf16(self.critic, h).float()[..., 0]
+            logits = dense(self.actor, h, BF16).float()
+            value = dense(self.critic, h, BF16).float()[..., 0]
         else:
             logits = self.actor(h)
             value = self.critic(h)[..., 0]

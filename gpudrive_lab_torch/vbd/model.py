@@ -18,8 +18,25 @@ model_utils.py roll_out and the utils.py DDPM sampler).
 Numerics follow flax: LayerNorm eps 1e-6, gelu the tanh approximation,
 flax's GRUCell (torch's ``nn.GRU`` with the hidden r and z biases at 0),
 ``MultiHeadDotProductAttention`` (the query scaled before the product,
-masked keys at the float32 minimum).  Module names are those
-``vbd/convert.vbd_params_from_flax`` maps flax's tree onto.  Float32 only.
+masked keys at the compute dtype's minimum).  Module names are those
+``vbd/convert.vbd_params_from_flax`` maps flax's tree onto.
+
+Compute dtype (``VBDConfig.dtype``): torch.float32, torch.bfloat16 or
+torch.float16, with flax 0.12.3's semantics for the JAX ``VBDConfig.dtype``
+(``networks/flax_dtype.py``: Dense, LayerNorm, gelu and softmax in the
+compute dtype cd), not ``torch.autocast``'s.  Parameters, their gradients
+and the sampling arithmetic (the scheduler, ``x_t``, ``roll_out``) stay
+float32.  The flow is flax's, so it is mixed: the GRU's carry is float32
+(flax's ``initialize_carry``), its gates cd, its output float32; the map
+tokens are cd and the encoder's residual stream float32 (agent tokens promote
+the concatenation); the relation layer sums its logits and ``attn @ v``
+in float32 over cd operands and adds cd sublayers to the float32 stream;
+the denoiser's residual stream is cd, its attention (flax MHA) scales,
+masks, normalises and mixes in cd, and only its output is cast to
+float32; the goal predictor adds the cd anchor embedding to the float32
+agent tokens and casts both heads to float32.  float32 runs the modules'
+own float32 ops (``nn.GRU`` and all).  float64 is refused: JAX without
+x64 would compute it in float32.
 
 Randomness: every sampler, and ``denoise_loss``, takes its draws through
 one argument, ``noise`` (see ``Draws``).
@@ -37,6 +54,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from gpudrive_lab_torch.device import resolve_device
+from gpudrive_lab_torch.networks.flax_dtype import (
+    COMPUTE_DTYPES,
+    cd_value,
+    dense,
+    gelu,
+    layer_norm,
+    sigmoid,
+    softmax,
+)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
 
@@ -288,10 +314,10 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def check_dtype(dtype) -> None:
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"VBD computes in float32 only; dtype {dtype} is not ported yet "
-            "(ROADMAP Queue A item 9)")
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"VBD computes in torch.float32, torch.bfloat16 or torch.float16;"
+            f" got {dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +329,10 @@ class FourierEmbedding(nn.Module):
     """reference: modules.py:21 FourierEmbedding; features
     [sin(2 pi x f), cos(2 pi x f)] per input dimension, then x."""
 
-    def __init__(self, in_dim: int, out_dim: int, num_bands: int = 16):
+    def __init__(self, in_dim: int, out_dim: int, num_bands: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.cd = dtype
         self.freqs = nn.Parameter(torch.empty(in_dim, num_bands))
         self.dense = nn.Linear(in_dim * (2 * num_bands + 1), out_dim)
 
@@ -314,38 +342,72 @@ class FourierEmbedding(nn.Module):
     def forward(self, x):
         ang = 2 * math.pi * x[..., None] * self.freqs
         feats = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
-        return self.dense(torch.cat([feats.flatten(-2), x], dim=-1))
+        return dense(self.dense, torch.cat([feats.flatten(-2), x], dim=-1),
+                     self.cd)
 
 
 class AgentEncoder(nn.Module):
-    """GRU over per-agent history (reference: modules.py:216-229)."""
+    """GRU over per-agent history (reference: modules.py:216-229); its
+    output is float32 in every compute dtype."""
 
-    def __init__(self, hidden: int, features: int = 8):
+    def __init__(self, hidden: int, features: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden = hidden
+        self.cd = dtype
         self.gru = nn.GRU(features, hidden, batch_first=True)
 
     def forward(self, history):  # [B, N, H, 8]
         B, N, H, Fd = history.shape
-        out, _ = self.gru(history.reshape(B * N, H, Fd))
-        return out[:, -1].reshape(B, N, self.hidden)
+        x = history.reshape(B * N, H, Fd)
+        if self.cd == torch.float32:
+            out, _ = self.gru(x)
+            return out[:, -1].reshape(B, N, self.hidden)
+        return self._flax_cells(x).reshape(B, N, self.hidden)
+
+    def _flax_cells(self, x):
+        """flax's ``nn.RNN(GRUCell(dtype=cd))`` over the steps of x
+        [M, H, F]: every gate Dense in cd (the input products of all steps
+        at once), the carry float32 from zero, so ``(1 - z) n + z h``
+        promotes to float32; the last carry [M, hidden]."""
+        cd, g = self.cd, self.gru
+        gi = (torch.matmul(x.to(cd), g.weight_ih_l0.t().to(cd))
+              + g.bias_ih_l0.to(cd))
+        w_hh, b_hh = g.weight_hh_l0.t().to(cd), g.bias_hh_l0.to(cd)
+        h = x.new_zeros((x.shape[0], self.hidden))
+        for t in range(x.shape[1]):
+            i_r, i_z, i_n = gi[:, t].chunk(3, dim=-1)
+            # flax's hr and hz have no bias: torch's hidden r and z biases
+            # (0 when converted from flax) add to the cd product exactly
+            h_r, h_z, h_n = (torch.matmul(h.to(cd), w_hh) + b_hh).chunk(
+                3, dim=-1)
+            r = sigmoid(i_r + h_r, cd)
+            z = sigmoid(i_z + h_z, cd)
+            n = torch.tanh(i_n + r * h_n)
+            h = (1.0 - z) * n + z * h
+        return h
 
 
 class MapEncoder(nn.Module):
     """Point MLP + max-pool per polyline + a lane-type embedding
     (reference: modules.py:231-252)."""
 
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.cd = dtype
         self.point0 = nn.Linear(3, 128)
         self.point1 = nn.Linear(128, hidden)
         self.type_embed = nn.Embedding(32, hidden)
 
     def forward(self, polylines):  # [B, P, K, 5]
-        h = self.point1(F.relu(self.point0(polylines[..., :3])))
+        cd = self.cd
+        h = dense(self.point1, F.relu(dense(self.point0, polylines[..., :3],
+                                            cd)), cd)
         pooled = h.amax(dim=-2)
         ptype = polylines[..., 0, 4].to(torch.int32).clamp(0, 31)
-        return pooled + self.type_embed(ptype.long())
+        # flax's Embed(dtype=cd) looks the row up in the table cast to cd
+        return pooled + F.embedding(ptype.long(),
+                                    self.type_embed.weight.to(cd))
 
 
 def _heads(z: torch.Tensor, heads: int) -> torch.Tensor:
@@ -357,9 +419,11 @@ class RelationAttentionLayer(nn.Module):
     pre-norm 4x MLP; the stand-in for the reference's QCMHA
     (modules.py:268-360)."""
 
-    def __init__(self, hidden: int, heads: int):
+    def __init__(self, hidden: int, heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
+        self.cd = dtype
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS)
         self.qkv = nn.Linear(hidden, 3 * hidden)
         self.out = nn.Linear(hidden, hidden)
@@ -369,17 +433,22 @@ class RelationAttentionLayer(nn.Module):
 
     def forward(self, tokens, rel_emb, pad_mask):
         """tokens [B, T, D]; rel_emb [B, T, T, heads]; pad_mask [B, T]
-        (True = padding, masked out of the keys)."""
-        q, k, v = (_heads(z, self.heads)
-                   for z in self.qkv(self.ln1(tokens)).chunk(3, dim=-1))
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+        (True = padding, masked out of the keys).  The logits and
+        ``attn @ v`` are float32 over cd operands (flax's
+        preferred_element_type), the softmax float32; the cd sublayers add
+        to the float32 tokens."""
+        cd = self.cd
+        q, k, v = (_heads(z, self.heads) for z in dense(
+            self.qkv, layer_norm(self.ln1, tokens, cd), cd).chunk(3, dim=-1))
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+                  / math.sqrt(q.shape[-1]))
         logits = logits + rel_emb.permute(0, 3, 1, 2)
         logits = logits.masked_fill(pad_mask[:, None, None, :], -1e9)
         attn = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).flatten(-2)
-        tokens = tokens + self.out(out)
-        h = F.gelu(self.fc1(self.ln2(tokens)), approximate="tanh")
-        return tokens + self.fc2(h)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v.float()).flatten(-2)
+        tokens = tokens + dense(self.out, out, cd)
+        h = gelu(dense(self.fc1, layer_norm(self.ln2, tokens, cd), cd), cd)
+        return tokens + dense(self.fc2, h, cd)
 
 
 class Encoder(nn.Module):
@@ -387,20 +456,21 @@ class Encoder(nn.Module):
 
     def __init__(self, config: VBDConfig):
         super().__init__()
-        D = config.hidden_dim
-        self.agent = AgentEncoder(D)
-        self.map = MapEncoder(D)
-        self.relation = FourierEmbedding(3, config.num_heads)
+        D, cd = config.hidden_dim, config.dtype
+        self.agent = AgentEncoder(D, dtype=cd)
+        self.map = MapEncoder(D, dtype=cd)
+        self.relation = FourierEmbedding(3, config.num_heads, dtype=cd)
         self.layers = nn.ModuleList(
-            RelationAttentionLayer(D, config.num_heads)
+            RelationAttentionLayer(D, config.num_heads, dtype=cd)
             for _ in range(config.encoder_layers))
 
     def forward(self, agents_history, polylines, agents_valid, maps_valid):
         """``agents_valid`` / ``maps_valid``: True = real token.  The pad
         mask (True = padding) drives the attention layers; the returned
-        ``valid_mask`` keeps True = real for the consumers."""
-        tokens = torch.cat([self.agent(agents_history), self.map(polylines)],
-                           dim=1)
+        ``valid_mask`` keeps True = real for the consumers.  The tokens
+        are float32: the float32 agent tokens promote the cd map tokens."""
+        tokens = torch.cat([self.agent(agents_history),
+                            self.map(polylines).float()], dim=1)
         valid_mask = torch.cat([agents_valid, maps_valid], dim=1)
         pad_mask = ~valid_mask
         # relative positions between the tokens' anchor points
@@ -426,14 +496,19 @@ def diffusion_step_embedding(t, dim):
 
 
 class FlaxMHA(nn.Module):
-    """flax ``nn.MultiHeadDotProductAttention`` (qkv and output width =
-    the input width): the query scaled by 1/sqrt(head_dim) before the
-    product, keys where ``mask`` is False set to the float32 minimum (a
-    query with every key masked attends uniformly, as in flax)."""
+    """flax ``nn.MultiHeadDotProductAttention(dtype=cd)`` (qkv and output
+    width = the input width), all in cd: the query divided by sqrt(head_dim)
+    (rounded to cd) before the product, keys where ``mask`` is False set to
+    cd's minimum (a query with every key masked attends uniformly, as in
+    flax), the softmax in cd (flax's force_fp32_for_softmax is off)."""
 
-    def __init__(self, hidden: int, heads: int):
+    def __init__(self, hidden: int, heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
+        self.cd = dtype
+        d = math.sqrt(hidden // heads)
+        self.scale = d if dtype == torch.float32 else cd_value(d, dtype)
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
@@ -441,37 +516,43 @@ class FlaxMHA(nn.Module):
 
     def forward(self, x_q, x_kv, mask):
         """x_q [B, Q, D]; x_kv [B, K, D]; mask [B, K] bool, True = attend."""
-        q = _heads(self.query(x_q), self.heads)
-        k = _heads(self.key(x_kv), self.heads)
-        v = _heads(self.value(x_kv), self.heads)
-        q = q / math.sqrt(q.shape[-1])
+        cd = self.cd
+        q = _heads(dense(self.query, x_q, cd), self.heads)
+        k = _heads(dense(self.key, x_kv, cd), self.heads)
+        v = _heads(dense(self.value, x_kv, cd), self.heads)
+        q = q / self.scale
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
         logits = logits.masked_fill(~mask[:, None, None, :],
                                     torch.finfo(logits.dtype).min)
-        attn = torch.softmax(logits, dim=-1)
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", attn, v).flatten(-2))
+        attn = softmax(logits, cd)
+        return dense(self.out, torch.einsum("bhqk,bkhd->bqhd", attn,
+                                            v).flatten(-2), cd)
 
 
 class DenoiserBlock(nn.Module):
     """Agent self-attention, cross-attention over the scene and a 4x MLP,
     each pre-norm with a residual."""
 
-    def __init__(self, hidden: int, heads: int):
+    def __init__(self, hidden: int, heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.cd = dtype
         self.ln_self = nn.LayerNorm(hidden, eps=LN_EPS)
-        self.self_attn = FlaxMHA(hidden, heads)
+        self.self_attn = FlaxMHA(hidden, heads, dtype)
         self.ln_cross = nn.LayerNorm(hidden, eps=LN_EPS)
-        self.cross_attn = FlaxMHA(hidden, heads)
+        self.cross_attn = FlaxMHA(hidden, heads, dtype)
         self.ln_ffn = nn.LayerNorm(hidden, eps=LN_EPS)
         self.fc1 = nn.Linear(hidden, 4 * hidden)
         self.fc2 = nn.Linear(4 * hidden, hidden)
 
     def forward(self, h, scene_tokens, scene_valid, agent_valid):
-        x = self.ln_self(h)
+        cd = self.cd
+        x = layer_norm(self.ln_self, h, cd)
         h = h + self.self_attn(x, x, agent_valid)
-        h = h + self.cross_attn(self.ln_cross(h), scene_tokens, scene_valid)
-        x = self.fc1(self.ln_ffn(h))
-        return h + self.fc2(F.gelu(x, approximate="tanh"))
+        h = h + self.cross_attn(layer_norm(self.ln_cross, h, cd),
+                                scene_tokens, scene_valid)
+        x = dense(self.fc1, layer_norm(self.ln_ffn, h, cd), cd)
+        return h + dense(self.fc2, gelu(x, cd), cd)
 
 
 class Denoiser(nn.Module):
@@ -483,23 +564,26 @@ class Denoiser(nn.Module):
         self.config = config
         self.action_in = nn.Linear(config.action_blocks * 2, D)
         self.step_in = nn.Linear(D, D)
-        self.blocks = nn.ModuleList(DenoiserBlock(D, config.num_heads)
-                                    for _ in range(2))
+        self.blocks = nn.ModuleList(
+            DenoiserBlock(D, config.num_heads, config.dtype)
+            for _ in range(2))
         self.out_ln = nn.LayerNorm(D, eps=LN_EPS)
         self.out = nn.Linear(D, config.action_blocks * 2)
 
     def forward(self, scene_tokens, scene_valid, noisy_actions,
                 diffusion_step):
-        """``scene_valid``: True = real token."""
+        """``scene_valid``: True = real token.  The residual stream is
+        cd; the output is float32."""
+        cd = self.config.dtype
         B, A = noisy_actions.shape[:2]
-        h = self.action_in(noisy_actions.reshape(B, A, -1))
-        h = h + self.step_in(diffusion_step_embedding(
-            diffusion_step, self.config.hidden_dim))
+        h = dense(self.action_in, noisy_actions.reshape(B, A, -1), cd)
+        h = h + dense(self.step_in, diffusion_step_embedding(
+            diffusion_step, self.config.hidden_dim), cd)
         agent_valid = scene_valid[:, :A]
         for block in self.blocks:
             h = block(h, scene_tokens, scene_valid, agent_valid)
-        out = self.out(self.out_ln(h))
-        return out.reshape(B, A, self.config.action_blocks, 2)
+        out = dense(self.out, layer_norm(self.out_ln, h, cd), cd)
+        return out.reshape(B, A, self.config.action_blocks, 2).float()
 
 
 class GoalPredictor(nn.Module):
@@ -512,21 +596,24 @@ class GoalPredictor(nn.Module):
         self.anchor0 = nn.Linear(2, 128)
         self.anchor1 = nn.Linear(128, D)
         self.ln = nn.LayerNorm(D, eps=LN_EPS)
-        self.attn = FlaxMHA(D, config.num_heads)
+        self.attn = FlaxMHA(D, config.num_heads, config.dtype)
         self.actions = nn.Linear(D, config.action_blocks * 2)
         self.score = nn.Linear(D, 1)
 
     def forward(self, scene_tokens, scene_valid, anchors):
+        """The cd anchor embedding plus the float32 agent tokens is
+        float32; both heads are cast to float32."""
         B, A, Q, _ = anchors.shape
-        D = self.config.hidden_dim
-        a_emb = self.anchor1(F.relu(self.anchor0(anchors)))
+        D, cd = self.config.hidden_dim, self.config.dtype
+        a_emb = dense(self.anchor1, F.relu(dense(self.anchor0, anchors, cd)),
+                      cd)
         h = a_emb + scene_tokens[:, :A][:, :, None, :]
-        attn = self.attn(self.ln(h.reshape(B, A * Q, D)), scene_tokens,
-                         scene_valid)
+        attn = self.attn(layer_norm(self.ln, h.reshape(B, A * Q, D), cd),
+                         scene_tokens, scene_valid)
         h = (h.reshape(B, A * Q, D) + attn).reshape(B, A, Q, D)
-        actions = self.actions(h).reshape(B, A, Q, self.config.action_blocks,
-                                          2)
-        return actions, self.score(F.elu(h))[..., 0]
+        actions = dense(self.actions, h, cd).reshape(
+            B, A, Q, self.config.action_blocks, 2)
+        return actions.float(), dense(self.score, F.elu(h), cd)[..., 0].float()
 
 
 class VBDModel(nn.Module):

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the official VBD model at full width, on one
-NVIDIA GPU.
+"""Device-time breakdown of a VBD model at full width, on one NVIDIA GPU.
 
-    python3 scripts/profile_vbd.py [--worlds 64] [--top 12]
+    python3 scripts/profile_vbd.py [--worlds 64] [--top 12] \
+        [--model official|tpu-first] [--dtype float32|bfloat16|float16]
 
-Builds the sample batch of the first ``--worlds`` pool_v3 worlds, an
-OfficialVBD with OfficialVBDConfig() (6 layers, 256 wide, 8 heads, 32
-agents) and seeded random weights, warms it up, then traces one encode and
-one denoise step under torch.profiler (TF32 off, as chip_smoke.py runs
-it).  Prints the card's name and power limit, each range's wall and device
-time, and its ``--top`` device activities by time.
+Builds the sample batch of the first ``--worlds`` pool_v3 worlds and, with
+seeded random weights, the official model (OfficialVBDConfig(): 6 layers,
+256 wide, 8 heads, 32 agents) or the TPU-first one (VBDConfig(): 2
+layers, 256 wide, 8 heads, 32 agents, in compute dtype ``--dtype``), warms
+it up, then traces one encode and one denoise step under torch.profiler
+(TF32 off, as chip_smoke.py runs it).  Prints the card's name and power
+limit, the wall and each range's device time, and the ``--top`` device
+activities of the two ranges by time.
 """
 
 import argparse
@@ -34,6 +36,7 @@ def main() -> int:
         device_breakdown,
         device_trace,
     )
+    from gpudrive_lab_torch.vbd import model as vmodel
     from gpudrive_lab_torch.vbd import model_official as vofficial
     from gpudrive_lab_torch.vbd.data_utils import (
         official_inputs,
@@ -43,6 +46,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--worlds", type=int, default=64)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--model", choices=("official", "tpu-first"),
+                    default="official")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16", "float16"),
+                    default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_vbd: CUDA is not available", file=sys.stderr)
@@ -57,21 +64,41 @@ def main() -> int:
     scene = build_scene(pool_scene_paths(ROOT)[:args.worlds], params,
                         device=dev)
     state = stepmod.reset(scene, None, params)
-    cfg = vofficial.OfficialVBDConfig()
-    inputs = official_inputs(process_scenario_data(scene, state, 0))
-    model = vofficial.OfficialVBD(
-        cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
-    x = torch.randn((args.worlds, cfg.agents_len, cfg.seq_len, 2),
-                    device=dev, generator=torch.Generator(dev).manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    batch = process_scenario_data(scene, state, 0)
+    if args.model == "official":
+        cfg = vofficial.OfficialVBDConfig()
+        inputs = official_inputs(batch)
+        model = vofficial.OfficialVBD(cfg, device=dev, generator=gen).eval()
+        blocks = cfg.seq_len
+
+        def encode():
+            return model.encode(inputs)
+
+        def denoise(enc):
+            model.denoise(enc, x, t)
+    else:
+        cfg = vmodel.VBDConfig(dtype=getattr(torch, args.dtype))
+        model = vmodel.VBDModel(cfg, device=dev, generator=gen).eval()
+        blocks = cfg.action_blocks
+
+        def encode():
+            return model.encode(batch)
+
+        def denoise(enc):
+            model.denoiser(*enc, x, t)
+    print(f"{args.model} model, compute dtype {args.dtype}")
+    x = torch.randn((args.worlds, cfg.agents_len, blocks, 2), device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
     t = torch.full((args.worlds, cfg.agents_len), cfg.diffusion_steps - 1,
                    device=dev)
 
     def run():
         with torch.no_grad():
             with record_function("encode"):
-                enc = model.encode(inputs)
+                enc = encode()
             with record_function("denoise"):
-                model.denoise(enc, x, t)
+                denoise(enc)
 
     run()  # warm-up: allocator, cuBLAS handles, lazy module loading
     torch.cuda.synchronize()

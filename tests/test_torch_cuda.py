@@ -222,35 +222,37 @@ def _embed_params(g, F):
 
 
 def _check_k3(x_dev, x, w, act):
-    """K3 on the card against its plain version: pooled within 1e-4, the
-    argmax equal where the top two differ by more than 1e-5, and a second
-    launch bitwise equal to the first."""
+    """K3 on the card against the float64 evaluation of its plain version:
+    pooled within 1e-4, the argmax equal where the top two differ by more
+    than 1e-5, and a second launch bitwise equal to the first.  The plain
+    version in float32 on the host CPU is a reading, printed beside: on
+    some hosts the CPU's float32 products are themselves 1.26e-4 from
+    float64 (scripts/cpu_gemm_precision.py measures it), more than the
+    kernel's 2.4e-6, so it is not the reference."""
     wd = [t.to(x_dev.device) for t in w]
     before = fe.fused_embed_pool_fwd.launches
     pooled, arg = fe.fused_embed_pool_fwd(x_dev, *wd, act)
     pooled2, arg2 = fe.fused_embed_pool_fwd(x_dev, *wd, act)
     assert fe.fused_embed_pool_fwd.launches == before + 2
     assert torch.equal(pooled, pooled2) and torch.equal(arg, arg2)
-    want, _ = fe.reference_embed_pool_argmax(x, *w, act)
-    err = float((pooled.cpu() - want).abs().max())
-    if err > 1e-4:  # say which side is off: both against float64
-        y64 = fe._embed(x.double(), *[t.double() for t in w], act)
-        top2 = y64.topk(2, dim=1)
-        want64 = top2.values[:, 0]
-        b, j = divmod(int((pooled.cpu() - want).abs().argmax()), 64)
-        raise AssertionError(
-            f"pooled max abs err {err} > 1e-4; kernel vs float64 "
-            f"{float((pooled.cpu().double() - want64).abs().max())}, plain "
-            f"vs float64 {float((want.double() - want64).abs().max())}; "
-            f"worst at row {b} unit {j}: kernel {float(pooled[b, j])} "
-            f"(entity {int(arg[b, j])}), plain {float(want[b, j])}, float64 "
-            f"top two {top2.values[b, :, j].tolist()} (entities "
-            f"{top2.indices[b, :, j].tolist()})")
-    y = fe._embed(x, *w, act)
-    if y.shape[1] < 2:
+    y64 = fe._embed(x.double(), *[t.double() for t in w], act)
+    top2 = y64.topk(min(2, y64.shape[1]), dim=1)
+    want64 = top2.values[:, 0]
+    plain, _ = fe.reference_embed_pool_argmax(x, *w, act)
+    err = float((pooled.cpu().double() - want64).abs().max())
+    plain_err = float((plain.double() - want64).abs().max())
+    print(f"K3 {tuple(x.shape)} {act}: kernel {err:.3g} from float64, "
+          f"plain float32 on the CPU {plain_err:.3g}")
+    b, j = divmod(int((pooled.cpu().double() - want64).abs().argmax()), 64)
+    assert err <= 1e-4, (
+        f"pooled max abs err {err} > 1e-4 from float64 (plain float32 on "
+        f"the CPU {plain_err}); worst at row {b} unit {j}: kernel "
+        f"{float(pooled[b, j])} (entity {int(arg[b, j])}), float64 top "
+        f"{top2.values[b, :, j].tolist()} (entities "
+        f"{top2.indices[b, :, j].tolist()})")
+    if y64.shape[1] < 2:
         assert torch.equal(arg.cpu(), torch.zeros_like(arg.cpu()))
         return pooled, arg
-    top2 = y.topk(2, dim=1)
     clear = (top2.values[:, 0] - top2.values[:, 1]) > 1e-5
     assert torch.equal(arg.cpu().long()[clear], top2.indices[:, 0][clear])
     return pooled, arg
@@ -958,6 +960,64 @@ def test_vbd_guidance_and_loss_on_card_match_cpu(dev):
         assert _rel(g[k], c[k]) <= 1e-4, k
     assert _rel(gl, cl) <= 1e-4
     assert _rel(gg, cg) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_vbd_compute_dtypes_on_card_match_cpu(dev, dtype):
+    """The TPU-first VBD model (hidden 64) in compute dtype bf16 and
+    float16 on the card against the CPU: waymo-guided sampling (its reward
+    gradients flow through the mixed-precision denoiser) with the same
+    draws, and denoise_loss with its gradient, within 6 units of the
+    dtype's roundoff of the largest magnitude (tests/test_torch_vbd_dtype.py
+    states why: a sum in another order flips a rounding to the dtype)."""
+    from gpudrive_lab_torch.vbd import guidance, guidance_metrics as gm
+    from gpudrive_lab_torch.vbd import model as vmodel
+
+    cd = getattr(torch, dtype)
+    bar = 6 * {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}[dtype]
+    cfg = vmodel.VBDConfig(future_len=20, agents_len=4, diffusion_steps=3,
+                           encoder_layers=1, hidden_dim=64, num_heads=4,
+                           dtype=cd)
+    rng = np.random.default_rng(1)
+    batch = {"agents_history": rng.normal(size=(2, 4, 11, 8)) * 5,
+             "agents_id": np.tile(np.arange(4), (2, 1)),
+             "agents_interested": np.ones((2, 4), np.int32),
+             "polylines": rng.normal(size=(2, 6, 10, 5)) * 10}
+    batch["agents_history"][..., 5:7] = [4.5, 2.0]
+    batch["polylines"][..., 4] = 1
+    batch = {k: torch.from_numpy(np.asarray(v, np.float32 if v.dtype.kind
+                                            == "f" else v.dtype))
+             for k, v in batch.items()}
+    draws = [rng.standard_normal((2, 4, 4, 2)).astype(np.float32)
+             for _ in range(4)]
+    loss_draws = [rng.integers(0, 3, (2, 4)),
+                  rng.standard_normal((2, 4, 4, 2)).astype(np.float32)]
+    gt = torch.from_numpy(rng.normal(size=(2, 4, 4, 2)).astype(np.float32))
+    out = []
+    for device in (dev, "cpu"):
+        m = vmodel.VBDModel(cfg, device=device,
+                            generator=torch.Generator().manual_seed(2))
+        b = {k: v.to(device) for k, v in batch.items()}
+        res = guidance.sample_denoiser_waymo(
+            m, vmodel.DDPMScheduler(3), b, cfg, draws,
+            rewards=[gm.overlap_reward(clip=30.0), gm.onroad_reward()],
+            guidance_iter=2, gradient_scale=0.05)
+        loss = vmodel.denoise_loss(m, vmodel.DDPMScheduler(3), b,
+                                   gt.to(device), cfg, loss_draws)
+        loss.backward()
+        grads = torch.cat([p.grad.flatten().cpu() for p in m.parameters()
+                           if p.grad is not None])
+        assert grads.dtype == torch.float32 and bool(grads.isfinite().all())
+        out.append(({k: v.cpu() for k, v in res.items()}, loss.detach().cpu(),
+                    grads))
+    (g, gl, gg), (c, cl, cg) = out
+    errs = {k: _rel(g[k], c[k]) for k in ("denoised_actions",
+                                          "denoised_trajs", "reward_history")}
+    errs.update(loss=_rel(gl, cl), grad=_rel(gg, cg))
+    print(f"VBD {dtype} card against CPU, of the largest magnitude: {errs} "
+          f"(bar {bar:.3g})")
+    for k, v in errs.items():
+        assert v <= bar, (k, v)
 
 
 def _on(obj, device):

@@ -34,7 +34,7 @@ def test_importing_every_module_loads_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 103  # every module was imported
+    assert int(out.stdout.split()[0]) >= 104  # every module was imported
 
 
 def test_walk_covers_the_dataset_slice():
@@ -79,6 +79,18 @@ def test_walk_covers_the_vbd_slice():
     for name in ("model", "model_official", "data_utils", "convert",
                  "integration", "guidance_metrics", "ilq", "guidance"):
         assert "gpudrive_lab_torch.vbd." + name in mods, name
+
+
+def test_walk_covers_the_compute_dtype_helpers():
+    """flax's compute-dtype semantics, shared by the late-fusion policy and
+    the VBD model, are among the modules imported."""
+    import pkgutil
+
+    import gpudrive_lab_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        gpudrive_lab_torch.__path__, "gpudrive_lab_torch.")}
+    assert "gpudrive_lab_torch.networks.flax_dtype" in mods
 
 
 def test_walk_covers_the_periphery_slice():
@@ -131,7 +143,9 @@ def _imported_roots(path):
 
 
 def test_no_source_names_jax():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "chip_phases.py"),
+             os.path.join(ROOT, "scripts", "cpu_gemm_precision.py")]
     for top in ("gpudrive_lab_torch", os.path.join("examples", "torch")):
         for d, _, files in os.walk(os.path.join(ROOT, top)):
             paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -174,6 +188,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         GPUDriveTorchEnv(EnvConfig(), POOL_SCENES[:1])
     with pytest.raises(RuntimeError, match="CUDA"):
         LateFusionPolicy()
+    from gpudrive_lab_torch.vbd.model import VBDConfig, VBDModel
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            VBDModel(VBDConfig(hidden_dim=16, num_heads=2, dtype=dtype))
     # and the CPU is used only when asked for
     scene = build_scene(POOL_SCENES[:1], Params(), device="cpu")
     assert scene.device.type == "cpu"

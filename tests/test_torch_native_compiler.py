@@ -188,6 +188,24 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*"))  # no half library left
 
 
+def test_available_answers_without_raising(tmp_path, monkeypatch):
+    """``available()`` is the JAX package's: True where scenes compile
+    natively, False with the native path switched off or a library that
+    does not build, where ``load`` raises."""
+    assert native.available() and jnative.available()
+    monkeypatch.setenv(native.NO_NATIVE_ENV, "1")
+    assert not native.available()
+    monkeypatch.delenv(native.NO_NATIVE_ENV)
+    bad = tmp_path / "scene_compiler.cpp"
+    bad.write_text("int broken( {\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    assert not native.available()
+    with pytest.raises(RuntimeError, match="g\\+\\+ exited"):
+        native.load()
+
+
 def test_concurrent_builds_leave_one_library(tmp_path, monkeypatch):
     """Builds that run at once (the test workers', the prefetch threads')
     each write a temporary file and move it into place: one library, no

@@ -235,8 +235,8 @@ def test_sample_denoiser_matches_jax(pair):
 
 def test_draws_from_a_generator_and_refusals():
     """Without given draws the sampler draws from a generator (seeded runs
-    repeat); a given draw of another shape, and a dtype other than
-    float32, are refused."""
+    repeat); a given draw of another shape, and a compute dtype other than
+    float32, bfloat16 and float16, are refused."""
     tm = model.VBDModel(model.VBDConfig(**CFG), device="cpu",
                         generator=torch.Generator().manual_seed(0))
     batch = _torch(_batch(anchors=False))
@@ -261,8 +261,9 @@ def test_draws_from_a_generator_and_refusals():
     assert not torch.allclose(j1, plain)
     with pytest.raises(ValueError, match="shape"):
         model.sample_denoiser(tm, sched, batch, cfg, [np.zeros((1, 2))])
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        model.VBDModel(model.VBDConfig(dtype=torch.bfloat16), device="cpu")
+    # float64 is refused: JAX without x64 would compute it in float32
+    with pytest.raises(ValueError, match="torch.float16"):
+        model.VBDModel(model.VBDConfig(dtype=torch.float64), device="cpu")
 
 
 # ---------------------------------------------------------------------------
