@@ -60,7 +60,16 @@ phase (parallel/dryrun.py: the JAX dryrun's three learner configurations
 over 2 gloo ranks sharing the card, 128 worlds each, against one process
 at the dryrun's bars, the ranks' parameters bitwise equal; what NCCL says
 to two ranks on one card; world-steps/s at 1 and 2 ranks, labelled as a
-shared card: not scaling evidence), checks the outputs, and prints:
+shared card: not scaling evidence) and the entry phase (the port's entry
+points run through their main(argv) in process: the sim bench on the 512
+pool worlds for 91 steps, tiled at 2048 roads and with each sensor on 64
+worlds; the train bench at phase 5's shape with --fused-embed in float32
+and bf16; the trainer CLI's checkpoint and a seeded reference checkpoint
+through eval_checkpoint; one bench_sb3 window; 16 pool scenes generated
+equal to data/pool_v3 and validated on the card; the entry CLI at its
+defaults, 2 ranks sharing the card over gloo; entry() and bench_step on
+the card against the CPU; the bench CLI once in a subprocess), checks
+the outputs, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * per phase: kernel and plain times (K1's and K2's wrapper time per call
@@ -81,8 +90,8 @@ shared card: not scaling evidence), checks the outputs, and prints:
     large-map reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
     rollout; for every kernel its launches in the dataset, il, rnn, vbd,
-    periphery, ingest, collision and multi phases, the multi phase's
-    counted inside its ranks);
+    periphery, ingest, collision, multi and entry phases, the multi
+    phase's counted inside its ranks);
   * last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero without the last line.  Without CUDA, or
@@ -3355,6 +3364,246 @@ def multi_phase(root: str, dev) -> dict:
             "scaling": sc}
 
 
+# the entry phase: the port's entry points outside the package, each run
+# through its main(argv) in this process so that its launches are counted
+ENTRY_SENSOR_WORLDS = 64  # the sensors' worlds (the camera is ~615x its
+ENTRY_SENSOR_STEPS = 10   # floor at 512: PERF.md section 7)
+ENTRY_TILED_STEPS = 10
+ENTRY_CPU_WORLDS = 4  # worlds of bench_step on the card against the CPU
+ENTRY_POOL_SCENES = 16
+# the train bench at phase 5's shape: T 32, 4 epochs x 4 minibatches, flat
+# compact 4416, observations recomputed; 2 timed iterations after 2
+ENTRY_TRAIN = ["--train", "--worlds", "512", "--rollout-len", "32",
+               "--num-minibatches", "4", "--update-epochs", "4",
+               "--compact", "4416", "--compact-mode", "flat",
+               "--train-iters", "2", "--repeats", "1", "--fused-embed"]
+
+
+def run_main(main, argv) -> tuple:
+    """``main(argv)`` in this process, its stdout and stderr captured, the
+    launch counts set to 0 just before: (its return value, its stdout
+    lines, its launches, wall s)."""
+    import io
+
+    set_counts(dict.fromkeys(counts(), 0))
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        ret = main(argv)
+    return ret, out.getvalue().splitlines(), counts(), time.time() - t0
+
+
+def entry_bench_against_cpu(root: str, dev) -> float:
+    """bench_step on ENTRY_CPU_WORLDS pool worlds, 10 steps of the same
+    action indices on the card and on the CPU: the flags and done equal,
+    the float state within 1e-3 (the parity bar).  Returns the largest
+    position difference."""
+    import numpy as np
+    import torch
+
+    from gpudrive_lab_torch import bench
+
+    args = bench.parse_args([
+        "--scenes-dir", os.path.join(root, "data", "pool_v3"),
+        "--worlds", str(ENTRY_CPU_WORLDS), "--lidar", "--bev", "--camera",
+        "--camera-size", "16"])
+    sides = [bench.sim_setup(args, d) for d in (dev, torch.device("cpu"))]
+    states = [sb.fresh for sb in sides]
+    accs = [torch.zeros((), device=sb.table.device) for sb in sides]
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for t in range(10):
+        idx = torch.from_numpy(rng.integers(
+            0, sides[1].table.shape[0], sides[1].scene.agents.valid.shape))
+        for i, sb in enumerate(sides):
+            states[i], accs[i] = bench.bench_step(
+                sb.scene, sb.fresh, sb.table, sb.weights, states[i],
+                idx.to(sb.table.device), accs[i], sb.params, sb.spec,
+                **sb.sensors)
+        card, cpu = states
+        for f in ("done", "collided", "collided_road", "collided_vehicle",
+                  "reached_goal", "steps_remaining"):
+            check(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)),
+                  f"entry bench_step: {f} differs from the CPU at step {t}")
+        worst = max(worst, float((card.pos.cpu() - cpu.pos).abs().max()))
+    check(worst <= 1e-3, f"entry bench_step: positions differ from the CPU "
+          f"by {worst}")
+    a, b = float(accs[0]), float(accs[1])
+    check(abs(a - b) <= 1e-3 * max(1.0, abs(b)),
+          f"entry bench_step: accumulator {a} on the card, {b} on the CPU")
+    return worst
+
+
+def entry_phase(root: str, dev) -> dict:
+    """The entry points of gpudrive_lab_torch that port the repository's
+    root scripts, on the card: the sim bench (``python -m
+    gpudrive_lab_torch.bench``) on the 512 pool_v3 worlds for 91 steps
+    (K2), tiled at 2048 roads (K1), with each sensor on
+    ENTRY_SENSOR_WORLDS worlds; the train bench at phase 5's shape with
+    --fused-embed in float32 (K3/K4) and in bf16 with the split bf16 store
+    (K3-bf16/K4-bf16); the trainer CLI writing a checkpoint and
+    ``utils.eval_checkpoint`` on it and on a seeded reference checkpoint;
+    one ``bench_sb3`` window; ``scene.pool`` writing ENTRY_POOL_SCENES
+    scenes equal to data/pool_v3 and validating them on the card;
+    ``entry.main`` at its defaults (the dry run's 2 ranks on the one
+    card); ``entry.entry()`` on the card against the CPU;
+    bench_step on the card against the CPU; and one run of the bench CLI
+    in a subprocess.  Returns {launches (every part's summed), ...}."""
+    import tempfile
+
+    import torch
+
+    from gpudrive_lab_torch import bench, bench_sb3, entry
+    from gpudrive_lab_torch.ppo import train
+    from gpudrive_lab_torch.scene import pool
+    from gpudrive_lab_torch.utils import eval_checkpoint
+
+    t_phase = time.time()
+    scenes = os.path.join(root, "data", "pool_v3")
+    total = dict.fromkeys(counts(), 0)
+    results = {}
+
+    def part(name, main, argv, need=(), none=()):
+        ret, lines, n, wall = run_main(main, argv)
+        for k, v in n.items():
+            total[k] += v
+        for k in need:
+            check(n[k] > 0, f"entry {name}: launched no {k}")
+        for k in none:
+            check(n[k] == 0, f"entry {name}: launched {k}")
+        results[name] = dict(ret=ret, launches=n, wall_s=wall)
+        print(f"[entry] {name}: {wall:.1f} s; launches "
+              + ", ".join(f"{k} {v}" for k, v in n.items() if v))
+        return ret, lines
+
+    worst = uncounted(lambda: entry_bench_against_cpu(root, dev))
+    print(f"[entry] bench_step with every sensor, {ENTRY_CPU_WORLDS} worlds "
+          f"x 10 steps: card equal to the CPU (flags, done), positions "
+          f"within {worst:.3g}")
+
+    def bench_line(name, argv, **kw):
+        ret, lines = part(name, bench.main, argv, **kw)
+        check(len(lines) == 1 and json.loads(lines[0]) == {
+            k: ret[k] for k in ("metric", "value", "unit", "vs_baseline")},
+            f"entry {name}: stdout is not the one result line: {lines}")
+        check(ret["value"] > 0, f"entry {name}: no throughput")
+        m = ret["meta"]
+        print(f"[entry] {name}: {ret['metric']} {ret['value']} "
+              f"({', '.join(f'{k} {v}' for k, v in m.items())})")
+        return ret
+
+    sim = ["--scenes-dir", scenes]
+    bench_line("bench sim", sim + ["--worlds", "512"], need=("K2",),
+               none=("K1",))
+    bench_line("bench sim tiled", sim + [
+        "--worlds", "512", "--steps", str(ENTRY_TILED_STEPS), "--repeats",
+        "2", "--tiles", "on", "--max-roads", "2048"], need=("K1",))
+    for sensor in ("--lidar", "--bev", "--camera"):
+        bench_line(f"bench sim {sensor[2:]}", sim + [
+            "--worlds", str(ENTRY_SENSOR_WORLDS), "--steps",
+            str(ENTRY_SENSOR_STEPS), "--repeats", "2", sensor],
+            need=("K2",))
+    f32 = bench_line("bench train float32", sim + ENTRY_TRAIN,
+                     need=("K2", "K3", "K4"), none=("K3-bf16", "K4-bf16"))
+    bf16 = bench_line("bench train bf16", sim + ENTRY_TRAIN + [
+        "--policy-dtype", "bf16", "--obs-store", "split-bf16"],
+        need=("K2", "K3-bf16", "K4-bf16"))
+    n = results["bench train bf16"]["launches"]
+    check(n["K3"] == n["K3-bf16"] and n["K4"] == n["K4-bf16"],
+          f"entry bench train bf16: float32 launches of K3/K4 ({n})")
+    print(f"[entry] train samples/s bf16 / float32: "
+          f"{bf16['value'] / f32['value']:.3f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        part("trainer CLI", train.main, [
+            "--data-dir", scenes, "--num-worlds", "16", "--rollout-len", "8",
+            "--num-minibatches", "2", "--update-epochs", "1",
+            "--agent-bucket", "auto", "--total-timesteps", "1",
+            "--fused-embed", "--checkpoint-path", run],
+            need=("K2", "K3", "K4"))
+        check(os.path.exists(os.path.join(run, train.CHECKPOINT)),
+              "entry: the trainer wrote no checkpoint")
+        ref = os.path.join(tmp, "reference", "model.pt")
+        os.makedirs(os.path.dirname(ref))
+        torch.save(reference_state_dict(SEED), ref)
+        for name, ck in (("eval trainer checkpoint", run),
+                         ("eval reference checkpoint", ref)):
+            agg, _ = part(name, eval_checkpoint.main, [
+                "--checkpoint", ck, "--scenes-dir", scenes, "--num-worlds",
+                "64"], need=("K2",))
+            check(agg["controlled_agents"] > 0 and all(
+                0.0 <= agg[k] <= 1.0
+                for k in ("goal_achieved", "collided", "off_road")),
+                f"entry {name}: {agg}")
+            print(f"[entry] {name}: " + json.dumps(agg))
+
+        sb3, _ = part("bench_sb3", bench_sb3.main,
+                      ["--scenes-dir", scenes, "--windows", "1"],
+                      need=("K2",))
+        check(sb3["meta"]["valid_samples"] > 0 and sb3["value"] > 0,
+              f"entry bench_sb3: {sb3}")
+        print(f"[entry] bench_sb3: {sb3['metric']} {sb3['value']} "
+              f"({', '.join(f'{k} {v}' for k, v in sb3['meta'].items())})")
+
+        out = os.path.join(tmp, "pool")
+        paths, lines = part("scene pool", pool.main, [
+            "--out", out, "--num", str(ENTRY_POOL_SCENES), "--validate",
+            str(ENTRY_POOL_SCENES)], need=("K2",))
+        for p in paths:
+            with open(p, "rb") as f, open(os.path.join(
+                    scenes, os.path.basename(p)), "rb") as g:
+                check(f.read() == g.read(),
+                      f"entry scene pool: {os.path.basename(p)} differs "
+                      "from data/pool_v3")
+        said = lines[-1]
+        print(f"[entry] scene pool: {len(paths)} scenes equal to "
+              f"data/pool_v3 byte for byte; {said}")
+        check(said.startswith(f"validate: {ENTRY_POOL_SCENES} scenes")
+              and said.endswith("collided 0"), f"entry scene pool: {said}")
+        n_valid = said.split("goal ")[1].split(",")[0].split("/")
+        check(n_valid[0] == n_valid[1], f"entry scene pool: {said}")
+
+    # the entry CLI at its defaults: 2 ranks, which share the one card
+    # over gloo, against one process; then entry()'s forward once
+    _, lines = part("entry main", entry.main, [], need=("K2",))
+    check(lines[-1].startswith("entry OK: [(128, 91), (128,)]"),
+          f"entry main: {lines[-3:]}")
+    print(f"[entry] entry main: {lines[-1]}")
+
+    fn, (variables, obs) = entry.entry()
+    cfn, (cvars, cobs) = entry.entry("cpu")
+    x = torch.randn(obs.shape, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        got = [t.cpu() for t in fn(variables, x.to(dev))]
+        want = cfn(cvars, x)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(tuple(got[0].shape) == (128, 91) and err <= 1e-4,
+          f"entry(): shapes {[tuple(t.shape) for t in got]}, card against "
+          f"CPU {err}")
+    print(f"[entry] entry(): logits {tuple(got[0].shape)}, value "
+          f"{tuple(got[1].shape)}; card against the CPU {err:.3g}")
+
+    t0 = time.time()
+    cli = subprocess.run(
+        [sys.executable, "-m", "gpudrive_lab_torch.bench", "--scenes-dir",
+         scenes, "--worlds", str(ENTRY_SENSOR_WORLDS), "--steps", "10",
+         "--repeats", "1"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    lines = cli.stdout.splitlines()
+    check(cli.returncode == 0 and len(lines) == 1
+          and json.loads(lines[0])["metric"] == "agent_steps_per_sec",
+          f"entry: the bench CLI exited {cli.returncode}: "
+          f"{cli.stdout[-500:]} {cli.stderr[-1500:]}")
+    print(f"[entry] python -m gpudrive_lab_torch.bench in a subprocess: "
+          f"{lines[0]} ({time.time() - t0:.1f} s)")
+    print(f"[entry] launches in the phase: {total}; the phase took "
+          f"{time.time() - t_phase:.1f} s")
+    results["launches"] = total
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3757,6 +4006,8 @@ def main() -> int:
     collision_out = collision_phase(root, dev)
     # ---- the multi phase: world-parallel training across processes --------
     multi = multi_phase(root, dev)
+    # ---- the entry phase: the benches, evaluation and generators ---------
+    entry_out = entry_phase(root, dev)
     for key, rec in results.items():
         base = key.split(",")[0]
         rec["il_launches"] = il["launches"][base]
@@ -3766,6 +4017,7 @@ def main() -> int:
         rec["ingest_launches"] = ingest["launches"][base]
         rec["collision_launches"] = collision_out["launches"][base]
         rec["multi_launches"] = multi["launches"][base]
+        rec["entry_launches"] = entry_out["launches"][base]
 
     # ---- phase 7: K1's and K2's device times ------------------------------
     # Last, because they run under torch.profiler: after a profiler session
@@ -3806,7 +4058,7 @@ def main() -> int:
             "sensor_launches", "dataset_launches", "il_launches",
             "rnn_launches", "vbd_launches", "periphery_launches",
             "ingest_launches", "collision_launches", "multi_launches",
-            "bar_readings")
+            "entry_launches", "bar_readings")
             if k in r})
     print(json.dumps(line))
     print(card)

@@ -26,9 +26,9 @@ rollouts' ``actions=`` (a sub-batch's draw is not a slice of the whole
 batch's).  Every rank's parameters must be bitwise equal at the end.
 
 Run on the cards as ``python -m gpudrive_lab_torch.parallel.dryrun --procs
-2`` (rank r on card r), on one card with ``--backend gloo`` (ranks that
-share a card need gloo: NCCL refuses two ranks on one device), or on the
-CPU with ``--device cpu``.
+2`` (rank r on card r, over NCCL), on one card (the ranks share it, over
+gloo: NCCL refuses two ranks on one device), or on the CPU with ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -296,12 +296,15 @@ def dryrun_multiprocess(n_procs: int, device=None, worlds_per_rank: int = 2,
     (``distributed.rank_devices``: rank r on card r where the host has
     ``n_procs`` cards, else every rank on ``device``), and assert the bars.
     ``widths`` are PolicyConfig widths (input_dim, hidden_dim; the full
-    width by default).  ``backend`` defaults to NCCL on CUDA and gloo on
-    the CPU; ranks sharing one card need "gloo".  Ranks still running after
+    width by default).  ``backend`` defaults to NCCL where each rank has a
+    card of its own, else gloo (ranks that share a card, or the CPU).
+    Ranks still running after
     ``timeout`` seconds are killed and the call raises.  Returns per
     configuration the readings, the single process's and each rank's
     seconds, and each rank's kernel launches."""
     devices = dist.rank_devices(device, n_procs)
+    if backend is None and len(set(devices)) < len(devices):
+        backend = "gloo"  # NCCL refuses two ranks on one card
     backend = dist.rank_backend(backend, devices)
     device = devices[0]
     root = root or os.path.dirname(os.path.dirname(os.path.dirname(
@@ -333,14 +336,26 @@ def dryrun_multiprocess(n_procs: int, device=None, worlds_per_rank: int = 2,
     return report
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def parse_args(argv=None, description: str | None = None):
+    """The dry run's flags (shared with ``python -m
+    gpudrive_lab_torch.entry``)."""
+    p = argparse.ArgumentParser(
+        description=description or __doc__.split("\n\n")[0])
     p.add_argument("--procs", type=int, default=2)
-    p.add_argument("--device", default=None)
+    p.add_argument("--device", "--platform", dest="device", default=None,
+                   help="torch device; CUDA unless another is named (cpu "
+                        "for the CPU); the run fails without CUDA otherwise")
     p.add_argument("--worlds-per-rank", type=int, default=2)
-    p.add_argument("--backend", default=None)
+    p.add_argument("--backend", default=None,
+                   help="process-group backend (default: NCCL where each "
+                        "rank has a card of its own, else gloo)")
     p.add_argument("--timeout", type=float, default=600.0)
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def run(args) -> dict:
+    """The dry run of parsed ``args``; prints each configuration's bars
+    and the report's JSON, and returns the report."""
     report = dryrun_multiprocess(args.procs, args.device,
                                  args.worlds_per_rank, backend=args.backend,
                                  timeout=args.timeout)
@@ -351,6 +366,11 @@ def main(argv=None) -> int:
               f"{r['max_metric_delta']:.2e}; rows per rank {r['rank_rows']})")
     print(json.dumps({k: v for k, v in report.items()
                       if k not in ("backend", "devices")}, default=str))
+    return report
+
+
+def main(argv=None) -> int:
+    run(parse_args(argv))
     return 0
 
 

@@ -2,10 +2,10 @@
 """Run phases of chip_smoke.py alone, on one NVIDIA GPU.
 
     python3 scripts/chip_phases.py [il] [rnn] [vbd] [periphery] [ingest] \
-        [collision] [multi]
+        [collision] [multi] [entry]
 
-With no argument it runs the il, rnn, vbd, periphery, ingest, collision
-and multi phases, in that order (the ingest phase builds the native scene
+With no argument it runs the il, rnn, vbd, periphery, ingest, collision,
+multi and entry phases, in that order (the ingest phase builds the native scene
 compiler itself; the kernels build at their first launch, in the multi
 phase in this process before its ranks start).
 Prints the card's name and power limit, the Python, torch and CUDA
@@ -33,7 +33,8 @@ def main() -> int:
 
     phases = {"il": cs.il_phase, "rnn": cs.rnn_phase, "vbd": cs.vbd_phase,
               "periphery": cs.periphery_phase, "ingest": cs.ingest_phase,
-              "collision": cs.collision_phase, "multi": cs.multi_phase}
+              "collision": cs.collision_phase, "multi": cs.multi_phase,
+              "entry": cs.entry_phase}
     names = sys.argv[1:] or list(phases)
     unknown = [n for n in names if n not in phases]
     if unknown:

@@ -10,6 +10,11 @@ source text of both packages (no import of either).
     ``NAME_EXEMPT``, each with its reason: JAX or TPU machinery with no
     meaning under PyTorch, or a feature the port carries under another
     name (the name it has there is given and checked).
+  * Every ``.py`` file at the repository's root or under ``scripts/`` that
+    imports ``jax`` or the JAX package (the system's entry points outside
+    the package) is mapped to its port module in ``ENTRY_POINTS``, which
+    binds the script's public names, or exempt with its reason in
+    ``ENTRY_EXEMPT``.
 """
 
 import ast
@@ -87,6 +92,23 @@ NAME_EXEMPT = {
 }
 
 
+# a root or scripts/ file that runs on JAX -> the port module that does its
+# work (python -m gpudrive_lab_torch.<module>)
+ENTRY_POINTS = {
+    "bench.py": "bench.py",
+    "bench_scaling.py": "parallel/scaling.py",
+    "__graft_entry__.py": "entry.py",
+    "scripts/bench_sb3.py": "bench_sb3.py",
+    "scripts/eval_checkpoint.py": "utils/eval_checkpoint.py",
+    "scripts/make_scene_pool.py": "scene/pool.py",
+    "scripts/train_rnn.py": "ppo/train_rnn.py",
+}
+PROBE_REASON = ("an XLA/HLO diagnostic of the JAX program on the TPU (its "
+                "lowering, fusion or dispatch); the port runs no XLA "
+                "program and reads its device time with torch.profiler "
+                "(scripts/profile_torch_rollout.py)")
+
+
 def _py_files(top):
     for d, _, files in os.walk(top):
         for f in files:
@@ -100,6 +122,29 @@ JAX_MODULES = sorted(_py_files(JAX_PKG))
 def _tree(path):
     with open(path) as f:
         return ast.parse(f.read())
+
+
+def _imports_jax(path) -> bool:
+    for n in ast.walk(_tree(path)):
+        names = ([a.name for a in n.names] if isinstance(n, ast.Import)
+                 else [n.module or ""] if isinstance(n, ast.ImportFrom)
+                 else [])
+        if any(m.split(".")[0] in ("jax", "gpudrive_lab_tpu") for m in names):
+            return True
+    return False
+
+
+def _entry_scripts():
+    files = [f for f in os.listdir(ROOT) if f.endswith(".py")]
+    files += [os.path.join("scripts", f)
+              for f in os.listdir(os.path.join(ROOT, "scripts"))
+              if f.endswith(".py")]
+    return sorted(f for f in files if _imports_jax(os.path.join(ROOT, f)))
+
+
+ENTRY_SCRIPTS = _entry_scripts()
+ENTRY_EXEMPT = {f: PROBE_REASON for f in ENTRY_SCRIPTS
+                if os.path.basename(f).startswith("probe_")}
 
 
 def _targets(node):
@@ -180,3 +225,22 @@ def test_every_exemption_is_needed_and_says_why():
             assert port_name in have, (rel, port_name)
     for rel, reason in MODULE_EXEMPT.items():
         assert len(reason) > 20, rel
+
+
+def test_the_entry_walk_sees_every_entry_point():
+    assert len(ENTRY_SCRIPTS) == len(ENTRY_POINTS) + len(ENTRY_EXEMPT)
+    assert len(ENTRY_EXEMPT) >= 19
+
+
+@pytest.mark.parametrize("script", ENTRY_SCRIPTS)
+def test_entry_point_has_a_port_module_with_its_names(script):
+    if script in ENTRY_EXEMPT:
+        assert len(ENTRY_EXEMPT[script]) > 20 and script not in ENTRY_POINTS
+        return
+    assert script in ENTRY_POINTS, f"{script} runs on JAX and has no port"
+    path = os.path.join(PORT_PKG, ENTRY_POINTS[script])
+    assert os.path.exists(path), path
+    missing = sorted(public_names(os.path.join(ROOT, script))
+                     - bound_names(path))
+    assert not missing, f"{script}: the port's {path} lacks {missing}"
+    assert "main" in bound_names(path), path

@@ -34,7 +34,7 @@ def test_importing_every_module_loads_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 104  # every module was imported
+    assert int(out.stdout.split()[0]) >= 109  # every module was imported
 
 
 def test_walk_covers_the_dataset_slice():
@@ -172,7 +172,21 @@ def test_walk_covers_the_ingest_slice():
         assert "gpudrive_lab_torch." + name in mods, name
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_walk_covers_the_entry_points():
+    """The ports of the entry points outside the JAX package (bench.py,
+    __graft_entry__.py, the scripts) are among the modules imported."""
+    import pkgutil
+
+    import gpudrive_lab_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        gpudrive_lab_torch.__path__, "gpudrive_lab_torch.")}
+    for name in ("bench", "bench_sb3", "entry", "scene.pool",
+                 "utils.eval_checkpoint"):
+        assert "gpudrive_lab_torch." + name in mods, name
+
+
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """Without a device argument every entry point asks for CUDA; with no
     CUDA present it raises instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -193,6 +207,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         with pytest.raises(RuntimeError, match="CUDA"):
             VBDModel(VBDConfig(hidden_dim=16, num_heads=2, dtype=dtype))
+    from gpudrive_lab_torch import bench, bench_sb3, entry
+    from gpudrive_lab_torch.scene import pool
+    from gpudrive_lab_torch.utils import eval_checkpoint
+
+    for main, argv in ((bench.main, []), (bench.main, ["--train"]),
+                       (bench_sb3.main, []),
+                       (eval_checkpoint.main, ["--checkpoint", "policy.pt"]),
+                       (pool.main, ["--out", str(tmp_path), "--num", "1"]),
+                       (entry.main, [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    assert not any(tmp_path.iterdir())  # the pool raised before writing
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pool.validate_pool(POOL_SCENES[:1])
     # and the CPU is used only when asked for
     scene = build_scene(POOL_SCENES[:1], Params(), device="cpu")
     assert scene.device.type == "cpu"
