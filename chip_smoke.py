@@ -59,8 +59,11 @@ collision pass and peak memory of each path at both sizes) and the multi
 phase (parallel/dryrun.py: the JAX dryrun's three learner configurations
 over 2 gloo ranks sharing the card, 128 worlds each, against one process
 at the dryrun's bars, the ranks' parameters bitwise equal; what NCCL says
-to two ranks on one card; world-steps/s at 1 and 2 ranks, labelled as a
-shared card: not scaling evidence) and the entry phase (the port's entry
+to two ranks on one card; the scaling harness through its main(argv) at
+the JAX script's workload, 1 and 2 ranks on the card over gloo, its
+bench_scaling.py lines checked, and world-steps/s of the pool workload at
+1 and 2 ranks x 128 worlds; both labelled as a shared card: not scaling
+evidence) and the entry phase (the port's entry
 points run through their main(argv) in process: the sim bench on the 512
 pool worlds for 91 steps, tiled at 2048 roads and with each sensor on 64
 worlds; the train bench at phase 5's shape with --fused-embed in float32
@@ -3309,8 +3312,10 @@ def multi_phase(root: str, dev) -> dict:
     width late-fusion policy with fused_embed (K3/K4 and their bf16 modes
     in configurations 1 and 2) and the unfused LSTM policy (3),
     MULTI_WORLDS_PER_RANK worlds per rank, two iterations per
-    configuration; then the world-steps/s of the sharded step at 1 and
-    MULTI_RANKS ranks, labelled as a shared card.  Returns the ranks'
+    configuration; then the scaling harness's JAX lines at 1 and
+    MULTI_RANKS ranks (``scaling_harness``) and the world-steps/s of the
+    pool workload's sharded step at the same counts, both labelled as a
+    shared card.  Returns the ranks'
     launches summed over configurations and ranks."""
     from gpudrive_lab_torch.parallel.dryrun import CONFIGS, dryrun_multiprocess
     from gpudrive_lab_torch.parallel.scaling import measure_scaling
@@ -3351,17 +3356,66 @@ def multi_phase(root: str, dev) -> dict:
     said = nccl_on_one_card()
     print("[multi] NCCL with 2 ranks on cuda:0: " + " | ".join(said))
     t1 = time.time()
+    harness = scaling_harness((1, MULTI_RANKS))
+    t2 = time.time()
     sc = measure_scaling((1, MULTI_RANKS), "cuda:0", MULTI_WORLDS_PER_RANK,
-                         backend="gloo", root=root)
+                         backend="gloo", root=root, workload="pool")
     for k, v in sc["sps"].items():
-        print(f"[multi] sharded step at {k} rank(s) x "
-              f"{MULTI_WORLDS_PER_RANK} worlds on {sc['devices'][k]}: "
+        print(f"[multi] pool workload: sharded step at {k} rank(s) x "
+              f"{MULTI_WORLDS_PER_RANK} pool worlds on {sc['devices'][k]}: "
               f"{v:.1f} world-steps/s, efficiency "
               f"{sc['efficiency'][k]:.3f} ({sc['label'] or 'one card a rank'})")
-    print(f"[multi] scaling {time.time() - t1:.1f} s; the phase took "
+    print(f"[multi] scaling harness {t2 - t1:.1f} s, pool workload "
+          f"{time.time() - t2:.1f} s; the phase took "
           f"{time.time() - t0:.1f} s; the ranks' launches {total}")
     return {"launches": total, "report": report, "nccl": said,
-            "scaling": sc}
+            "harness": harness, "scaling": sc}
+
+
+def _json_keys(line: str) -> set:
+    try:
+        return set(json.loads(line))
+    except ValueError:
+        return set()
+
+
+def scaling_harness(counts) -> dict:
+    """``python -m gpudrive_lab_torch.parallel.scaling --platform cuda:0
+    --counts <counts> --backend gloo`` through its main(argv), at the JAX
+    script's workload and defaults, stdout and stderr captured:
+    one line per count on stderr and bench_scaling.py's summary line, with
+    bench_scaling.py's keys, as the last stdout line.  Returns the summary
+    and the per-count lines."""
+    import io
+
+    from gpudrive_lab_torch.parallel import scaling
+
+    argv = ["--platform", "cuda:0", "--counts", *map(str, counts),
+            "--backend", "gloo"]
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = scaling.main(argv)
+    check(rc == 0, f"scaling harness exited {rc}")
+    lines = out.getvalue().strip().splitlines()
+    check(bool(lines), "scaling harness printed no summary line")
+    summary = json.loads(lines[-1])
+    keys = {"metric", "value", "unit", "vs_baseline", "per_device_counts",
+            "valid"}
+    check(keys <= set(summary) and summary["metric"] == "scaling_efficiency",
+          f"scaling summary lacks bench_scaling.py's keys: {summary}")
+    # ranks on one card: not scaling evidence, and the line says so
+    check(summary["valid"] is False and "invalid_reason" in summary,
+          f"scaling summary on a shared card: {summary}")
+    per_count = [json.loads(x) for x in err.getvalue().splitlines()
+                 if _json_keys(x) == {"devices", "worlds",
+                                      "world_steps_per_sec"}]
+    check([c["devices"] for c in per_count] == list(counts),
+          f"scaling harness per-count lines {per_count}, counts {counts}")
+    for c in per_count:
+        print(f"[multi] scaling harness (synthetic workload, ranks on "
+              f"cuda:0): {json.dumps(c)}")
+    print(f"[multi] scaling harness summary: {lines[-1]}")
+    return {"summary": summary, "per_count": per_count}
 
 
 # the entry phase: the port's entry points outside the package, each run

@@ -376,8 +376,9 @@ def parse_args(argv=None):
                    help="exact all-pairs collision + exact top-k (the port's "
                         "top-k is exact either way)")
     p.add_argument("--device", "--platform", dest="device", default=None,
-                   help="torch device; CUDA unless another is named (cpu "
-                        "for the CPU); the run fails without CUDA otherwise")
+                   help="torch device or JAX platform name; CUDA "
+                        "unless another is named (cpu for the CPU); the run "
+                        "fails without CUDA otherwise")
     p.add_argument("--repeats", type=int, default=3,
                    help="timing repetitions; best is reported")
     p.add_argument("--grid", action="store_true",

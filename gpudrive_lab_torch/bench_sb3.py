@@ -53,8 +53,9 @@ def main(argv=None) -> dict:
     p.add_argument("--windows", type=int, default=2,
                    help="timed learn windows after the warm-up window")
     p.add_argument("--device", "--platform", dest="device", default=None,
-                   help="torch device; CUDA unless another is named (cpu "
-                        "for the CPU); the run fails without CUDA otherwise")
+                   help="torch device or JAX platform name; CUDA "
+                        "unless another is named (cpu for the CPU); the run "
+                        "fails without CUDA otherwise")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
 

@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gpudrive_lab_torch.device import resolve_device
 from gpudrive_lab_torch.env.config import EnvConfig
 from gpudrive_lab_torch.env.dataset import SceneDataLoader
 from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
@@ -169,11 +170,12 @@ def load_policy(path, device=None) -> EarlyFusionAttnBCNet:
     return model
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default="cuda",
-                   help="torch device; the run fails without CUDA unless "
-                        "another device is named (e.g. cpu)")
+    p.add_argument("--device", "--platform", dest="device", default=None,
+                   help="torch device or JAX platform name; CUDA unless "
+                        "another is named (cpu for the CPU); the run fails "
+                        "without CUDA otherwise")
     p.add_argument("--data-dir", default=str(ROOT / "data" / "pool_v3"))
     p.add_argument("--num-worlds", type=int, default=2)
     p.add_argument("--num-batches", type=int, default=1,
@@ -189,7 +191,12 @@ def main(argv=None):
                    help="also evaluate closed-loop on the loader's next "
                         "(unseen) scene batch")
     p.add_argument("--out", default="runs/bc_policy.pt")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
 
     loader = SceneDataLoader(root=args.data_dir, batch_size=args.num_worlds,
                              dataset_size=100000)
@@ -198,7 +205,7 @@ def main(argv=None):
         max_controlled_agents=0,  # every agent replays its log
         agent_bucket=args.agent_bucket,
     )
-    env = GPUDriveTorchEnv(env_cfg, data_loader=loader, device=args.device)
+    env = GPUDriveTorchEnv(env_cfg, data_loader=loader, device=device)
     dev = env.device
     parts = [generate_state_action_pairs(env)]
     first_batch_paths = list(env.scene_paths)

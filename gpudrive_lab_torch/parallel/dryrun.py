@@ -343,8 +343,9 @@ def parse_args(argv=None, description: str | None = None):
         description=description or __doc__.split("\n\n")[0])
     p.add_argument("--procs", type=int, default=2)
     p.add_argument("--device", "--platform", dest="device", default=None,
-                   help="torch device; CUDA unless another is named (cpu "
-                        "for the CPU); the run fails without CUDA otherwise")
+                   help="torch device or JAX platform name; CUDA "
+                        "unless another is named (cpu for the CPU); the run "
+                        "fails without CUDA otherwise")
     p.add_argument("--worlds-per-rank", type=int, default=2)
     p.add_argument("--backend", default=None,
                    help="process-group backend (default: NCCL where each "

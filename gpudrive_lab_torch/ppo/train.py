@@ -37,6 +37,7 @@ from pathlib import Path
 import torch
 
 from gpudrive_lab_torch.core import step as stepmod
+from gpudrive_lab_torch.device import resolve_device
 from gpudrive_lab_torch.env.config import EnvConfig
 from gpudrive_lab_torch.env.dataset import SceneDataLoader
 from gpudrive_lab_torch.env.env_torch import (
@@ -209,11 +210,12 @@ def load_checkpoint(ckpt_dir, policy, optimizer=None) -> int | None:
     return None
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default="cuda",
-                   help="torch device; the run fails without CUDA unless "
-                        "another device is named (e.g. cpu)")
+    p.add_argument("--device", "--platform", dest="device", default=None,
+                   help="torch device or JAX platform name; CUDA unless "
+                        "another is named (cpu for the CPU); the run fails "
+                        "without CUDA otherwise")
     p.add_argument("--data-dir", default=str(ROOT / "data" / "pool_v3"),
                    help="directory of tfrecord*.json scenes; batches of "
                         "--num-worlds are drawn from them with replacement")
@@ -291,7 +293,12 @@ def main(argv=None):
                    help="live rich-console dashboard (reference: "
                         "integrations/puffer/logging.py); the JSON lines "
                         "on stdout are silenced while it is on")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
     if args.video_interval:
         # videos need matplotlib: fail here, not after the first iteration
         import matplotlib  # noqa: F401
@@ -318,7 +325,7 @@ def main(argv=None):
                       and args.agent_bucket != "auto" else args.agent_bucket),
     )
     env = GPUDriveTorchEnv(cfg, data_loader=loader,
-                           max_roads=args.max_roads, device=args.device)
+                           max_roads=args.max_roads, device=device)
     ppo_cfg = PPOConfig(
         rollout_len=args.rollout_len, num_minibatches=args.num_minibatches,
         ent_coef=args.ent_coef, update_epochs=args.update_epochs,

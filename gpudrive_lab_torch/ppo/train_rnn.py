@@ -31,6 +31,7 @@ from pathlib import Path
 import torch
 
 from gpudrive_lab_torch.core import step as stepmod
+from gpudrive_lab_torch.device import resolve_device
 from gpudrive_lab_torch.env.config import EnvConfig
 from gpudrive_lab_torch.env.dataset import SceneDataLoader
 from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
@@ -49,9 +50,10 @@ JAX_CHECKPOINT = "policy.pkl"
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default="cuda",
-                   help="torch device; the run fails without CUDA unless "
-                        "another device is named (e.g. cpu)")
+    p.add_argument("--device", "--platform", dest="device", default=None,
+                   help="torch device or JAX platform name; CUDA unless "
+                        "another is named (cpu for the CPU); the run fails "
+                        "without CUDA otherwise")
     p.add_argument("--data-dir", default=str(ROOT / "data" / "pool_v3"))
     p.add_argument("--num-worlds", type=int, default=16)
     p.add_argument("--total-timesteps", type=int, default=200_000)
@@ -114,6 +116,7 @@ def load_checkpoint(ckpt_dir, rnn: RnnPPO) -> int | None:
 
 def build(args):
     """(env, rnn, carry, fresh) for the parsed flags."""
+    device = resolve_device(args.device)
     loader = SceneDataLoader(
         root=args.data_dir, batch_size=args.num_worlds, dataset_size=1000,
         sample_with_replacement=True, seed=args.seed,
@@ -129,7 +132,7 @@ def build(args):
             dynamics_model="classic", collision_behavior="ignore",
             init_steps=args.init_steps, agent_bucket=bucket,
         ),
-        data_loader=loader, device=args.device,
+        data_loader=loader, device=device,
     )
     pc = PolicyConfig(
         action_dim=env.action_space_n,

@@ -934,9 +934,9 @@ def main(argv=None):
                     help="run all-expert sim replay on this many scenes "
                          "and assert 100%% goal / 0 collisions")
     ap.add_argument("--device", "--platform", dest="device", default=None,
-                    help="torch device of --validate; CUDA unless another "
-                         "is named (cpu for the CPU); the run fails "
-                         "without CUDA otherwise")
+                    help="torch device or JAX platform name of --validate; "
+                         "CUDA unless another is named (cpu for the CPU); "
+                         "the run fails without CUDA otherwise")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)

@@ -100,8 +100,9 @@ def main(argv=None) -> dict:
                    help="expert log-playback warmup applied at reset; "
                         "default matches the campaign / reference config")
     p.add_argument("--device", "--platform", dest="device", default=None,
-                   help="torch device; CUDA unless another is named (cpu "
-                        "for the CPU); the run fails without CUDA otherwise")
+                   help="torch device or JAX platform name; CUDA "
+                        "unless another is named (cpu for the CPU); the run "
+                        "fails without CUDA otherwise")
     p.add_argument("--keep-non-vehicles", action="store_true",
                    help="create pedestrian/cyclist agents (match a "
                         "campaign trained with --keep-non-vehicles)")

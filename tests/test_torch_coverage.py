@@ -15,6 +15,12 @@ source text of both packages (no import of either).
     the package) is mapped to its port module in ``ENTRY_POINTS``, which
     binds the script's public names, or exempt with its reason in
     ``ENTRY_EXEMPT``.
+  * Every option string that a JAX command line's parser takes (each
+    ``add_argument``) is taken by its port's parser, over every
+    ``ENTRY_POINTS`` pair, every JAX module that builds a parser with its
+    counterpart, and every ``examples/NN_*.py`` with its
+    ``examples/torch/`` port, but for the options of ``FLAG_EXEMPT``, each
+    with its reason.
 """
 
 import ast
@@ -244,3 +250,64 @@ def test_entry_point_has_a_port_module_with_its_names(script):
                      - bound_names(path))
     assert not missing, f"{script}: the port's {path} lacks {missing}"
     assert "main" in bound_names(path), path
+
+
+# (JAX file, option string) -> reason the port's parser need not take it
+FLAG_EXEMPT: dict = {}
+
+
+def _cli_pairs():
+    """(JAX file, port file) of every command line, paths under ROOT."""
+    pairs = [(script, os.path.join("gpudrive_lab_torch", port))
+             for script, port in ENTRY_POINTS.items()]
+    for rel in JAX_MODULES:
+        with open(os.path.join(JAX_PKG, rel)) as f:
+            if "add_argument" in f.read():
+                pairs.append((os.path.join("gpudrive_lab_tpu", rel),
+                              os.path.relpath(counterpart(rel), ROOT)))
+    examples = os.path.join(ROOT, "examples")
+    pairs += [(os.path.join("examples", f),
+               os.path.join("examples", "torch", f))
+              for f in sorted(os.listdir(examples))
+              if f.endswith(".py") and f[:2].isdigit() and f[2] == "_"]
+    return pairs
+
+
+CLI_PAIRS = _cli_pairs()
+
+
+def option_strings(path) -> set:
+    """The option strings of every ``add_argument`` call in a file."""
+    out = set()
+    for n in ast.walk(_tree(os.path.join(ROOT, path))):
+        if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "add_argument"):
+            for a in n.args:
+                assert isinstance(a, ast.Constant), (path, ast.dump(a))
+                out.add(a.value)
+    return out
+
+
+def test_the_flag_walk_sees_every_command_line():
+    """7 entry points, the 7 JAX modules with a parser, 9 examples; and
+    the parsers seen hold the trainers' flags."""
+    assert len(CLI_PAIRS) == len(set(CLI_PAIRS)) >= 23
+    jax_files = [j for j, _ in CLI_PAIRS]
+    for f in ("bench_scaling.py", "gpudrive_lab_tpu/ppo/train.py",
+              "gpudrive_lab_tpu/il/train.py",
+              "examples/09_pretrained_policy.py"):
+        assert f in jax_files, f
+    assert "--platform" in option_strings("gpudrive_lab_tpu/ppo/train.py")
+    for (jax_file, option), reason in FLAG_EXEMPT.items():
+        assert len(reason) > 20, (jax_file, option)
+        assert option in option_strings(jax_file), (jax_file, option)
+
+
+@pytest.mark.parametrize("jax_file,port_file", CLI_PAIRS,
+                         ids=[j for j, _ in CLI_PAIRS])
+def test_port_cli_takes_every_jax_flag(jax_file, port_file):
+    assert os.path.exists(os.path.join(ROOT, port_file)), port_file
+    missing = sorted(o for o in option_strings(jax_file)
+                     - option_strings(port_file)
+                     if (jax_file, o) not in FLAG_EXEMPT)
+    assert not missing, f"{port_file} lacks {jax_file}'s {missing}"
