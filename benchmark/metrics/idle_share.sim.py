@@ -1,0 +1,9 @@
+"""idle_share.sim: the share (%) of the traced window of bench steps in
+which no operation ran on the device."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if ctx.get("driver") != "sim" or tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
