@@ -1,0 +1,25 @@
+"""update_ms.train: stream ms per PPO iteration in the minibatch update
+(the ``ppo.learn`` spans), over the traced PPO iterations.
+
+Read from the port's span records
+(``gpudrive_lab_torch.utils.profiling.span_ms()``): a span's stream ms
+is the time between its two CUDA events on the stream, the layer's
+device work and the device's wait for the host to launch it. Silent
+without a trace, in a cell of the other kind, where the port keeps no
+records or none of the span, and where the top-level ``ppo.rollout``
+records are not one per traced iteration."""
+
+KIND, COUNT = "train", "iterations_traced"
+TOP, SPAN, UNDER = "ppo.rollout", "ppo.learn", None
+
+
+def read(ctx):
+    n = ctx.get(COUNT, 0)
+    if ctx.get("driver") != KIND or ctx.get("trace") is None or not n:
+        return None
+    try:
+        from gpudrive_lab_torch.utils.profiling import span_ms
+    except ImportError:  # a port without spans
+        return None
+    ms = span_ms(SPAN, UNDER)
+    return sum(ms) / n if ms and len(span_ms(TOP)) == n else None

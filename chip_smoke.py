@@ -1083,54 +1083,32 @@ def k2_against_plain(env, what: str, tag: str = "[dataset]") -> None:
 
 
 class PhaseTimer:
-    """CUDA events around a PPO trainer's rollout, GAE (prepare) and update
-    (learn) calls while it is installed, for a CLI's iterations; ``last``
-    holds the last rollout call's (trainer, args, result).  ``trainer`` is
-    the class, PPO by default."""
+    """A PPO trainer's rollout, GAE and update ms per iteration, for a
+    CLI's iterations: the trainer's own ``ppo.rollout``, ``ppo.prepare``
+    and ``ppo.learn`` spans, which alone record while the timer is entered
+    (stream ms on a card), read at its exit."""
 
-    PHASES = (("rollout", "rollout"), ("gae", "prepare"), ("update", "learn"))
-
-    def __init__(self, trainer=None):
-        self.marks = []
-        self.trainer = trainer
-        self.last = None
+    PHASES = {"ppo.rollout": "rollout", "ppo.prepare": "gae",
+              "ppo.learn": "update"}
 
     def __enter__(self):
-        import torch
+        from gpudrive_lab_torch.utils import profiling
 
-        from gpudrive_lab_torch.ppo.ppo import PPO
-
-        self.trainer = self.trainer or PPO
-        self.saved = {m: getattr(self.trainer, m) for _, m in self.PHASES}
-        for name, m in self.PHASES:
-            def timed(*a, _f=self.saved[m], _n=name, **k):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = _f(*a, **k)
-                end.record()
-                self.marks.append((_n, start, end))
-                if _n == "rollout":
-                    self.last = (a[0], a[1:], out)
-                return out
-            setattr(self.trainer, m, timed)
+        self._recording = profiling.recording(self.PHASES)
+        self._first = self._recording.__enter__()
         return self
 
     def __exit__(self, *exc):
-        for m, f in self.saved.items():
-            setattr(self.trainer, m, f)
+        from gpudrive_lab_torch.utils import profiling
+
+        ms = [profiling.span_ms(n, start=self._first) for n in self.PHASES]
+        self._iters = [dict(zip(self.PHASES.values(), it))
+                       for it in zip(*ms)]
+        return self._recording.__exit__(*exc)
 
     def iterations(self) -> list:
         """[{rollout, gae, update} ms] per iteration."""
-        import torch
-
-        torch.cuda.synchronize()
-        out = []
-        for name, a, b in self.marks:
-            if name == "rollout":
-                out.append({})
-            out[-1][name] = a.elapsed_time(b)
-        return out
+        return self._iters
 
 
 def dataset_phase(root: str, dev, gen) -> dict:
@@ -1449,7 +1427,6 @@ def rnn_phase(root: str, dev) -> dict:
         PolicyConfig,
     )
     from gpudrive_lab_torch.ppo import train_rnn
-    from gpudrive_lab_torch.ppo.ppo_rnn import RnnPPO
     from gpudrive_lab_torch.scene.compiler import compile_world
     from gpudrive_lab_torch.utils.profiling import (
         device_breakdown,
@@ -1493,9 +1470,9 @@ def rnn_phase(root: str, dev) -> dict:
             print(f"[rnn] train_rnn.main {' '.join(argv)}")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            with PhaseTimer(RnnPPO) as timer:
+            with PhaseTimer() as timer:
                 t0 = time.time()
-                train_rnn.main(argv)
+                trained = train_rnn.main(argv)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
             peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1523,13 +1500,15 @@ def rnn_phase(root: str, dev) -> dict:
             if what == "float32":
                 check(len(iters) >= 3, f"rnn: {len(iters)} float32 "
                       "iterations, expected at least 3")
-                rnn, args, (carry, _) = timer.last
+                # the CLI's env, trainer and carry after its last rollout
+                rnn_env, rnn, carry, fresh = trained
+                scene, rw = rnn_env.scene, rnn_env.reward_weights
                 ckpt_f32 = torch.load(os.path.join(ckpt, what,
                                                    train_rnn.CHECKPOINT),
                                       map_location="cpu")
             else:
                 check(len(iters) == 1, f"rnn bf16: {len(iters)} iterations")
-            del timer
+            del timer, trained
     launches = counts()
     results["launches"] = launches
     print(f"[rnn] launches in the phase: {launches}")
@@ -1538,7 +1517,6 @@ def rnn_phase(root: str, dev) -> dict:
         check(launches[k] == 0, f"the rnn phase launched {k}")
 
     # one policy step on the last state's rows, card against CPU
-    scene, fresh, rw = args[0], args[2], args[3]
     cidx = rnn.ctrl_slots(scene)
     obs = flat_observation(scene, carry.state, rnn.params, rnn.spec, rw,
                            cidx)[0][:RNN_CPU_ROWS]

@@ -54,6 +54,7 @@ from gpudrive_lab_torch.device import resolve_device
 from gpudrive_lab_torch.env.config import EnvConfig
 from gpudrive_lab_torch.env.env_torch import ObsSpec, flat_observation
 from gpudrive_lab_torch.scene.compiler import build_scene
+from gpudrive_lab_torch.utils.profiling import span
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the reference's own scene layout; tests/data when it is absent
@@ -95,27 +96,29 @@ def bench_step(scene, fresh, table, weights, state, idx, acc, params,
     ``table``: the sim step, the observation and sensors asked for, each
     consumed into the scalar ``acc``, and the finished worlds reset to
     ``fresh``.  Returns (state, acc)."""
-    W, A = idx.shape
-    act = torch.zeros((W, A, C.ACTION_DIM), dtype=torch.float32,
-                      device=idx.device)
-    act[..., :3] = table[idx]
-    state = stepmod.step(scene, state, act, params)
-    if obs:
-        o, _, _ = flat_observation(scene, state, params, spec, weights)
-        acc = acc + o[0, 0, 0] + state.reward[0, 0]
-    else:
-        acc = acc + state.reward[0, 0]
-    # each sensor through a FULL reduction of its output
-    if lidar:
-        acc = acc + lidar_observation(scene, state, params, act)[..., 0].sum()
-    if bev:
-        acc = acc + bev_observation(scene, state, params).sum()
-    if camera:
-        rgb, depth = batch_render(scene, state,
-                                  CameraConfig(height=camera, width=camera))
-        acc = acc + depth.sum() + rgb[..., 0].sum(dtype=torch.float32)
-    world_done = ((state.done != 0) | ~scene.agents.valid).all(dim=1)
-    return stepmod.select_worlds(world_done, fresh, state), acc
+    with span("bench.step"):
+        W, A = idx.shape
+        act = torch.zeros((W, A, C.ACTION_DIM), dtype=torch.float32,
+                          device=idx.device)
+        act[..., :3] = table[idx]
+        state = stepmod.step(scene, state, act, params)
+        if obs:
+            o, _, _ = flat_observation(scene, state, params, spec, weights)
+            acc = acc + o[0, 0, 0] + state.reward[0, 0]
+        else:
+            acc = acc + state.reward[0, 0]
+        # each sensor through a FULL reduction of its output
+        if lidar:
+            acc = acc + lidar_observation(scene, state, params,
+                                          act)[..., 0].sum()
+        if bev:
+            acc = acc + bev_observation(scene, state, params).sum()
+        if camera:
+            rgb, depth = batch_render(
+                scene, state, CameraConfig(height=camera, width=camera))
+            acc = acc + depth.sum() + rgb[..., 0].sum(dtype=torch.float32)
+        world_done = ((state.done != 0) | ~scene.agents.valid).all(dim=1)
+        return stepmod.select_worlds(world_done, fresh, state), acc
 
 
 def _sync(device: torch.device) -> None:

@@ -37,6 +37,7 @@ from gpudrive_lab_torch.core.kernels import (
 )
 from gpudrive_lab_torch.core.types import Params, Scene, SimState, vec_norm
 from gpudrive_lab_torch.scene.rtiles import MORTON_CELLS, morton_interleave
+from gpudrive_lab_torch.utils.profiling import span
 
 
 def agent_half_extents(scene: Scene) -> torch.Tensor:
@@ -216,35 +217,11 @@ def _candidate_road_hits(scene: Scene, state: SimState, active, half,
     return (hit & r_ok).any(dim=-1)
 
 
-def collision_system(
-    scene: Scene, state: SimState, params: Params, cur_step: torch.Tensor
-) -> SimState:
-    """One collision pass; returns the state with collided/info flags set.
-
-    ``cur_step`` is the pre-decrement trajectory index [W, A]
-    (src/sim.cpp:23-25,640)."""
-    agents = scene.agents
-    active = ~_skip_mask(scene, state, cur_step)
-    half = agent_half_extents(scene)
-
-    # ---- agent vs agent -------------------------------------------------
-    hit_aa = obb.obb_overlap_sat(
-        state.pos[:, :, None, :], state.yaw[:, :, None], half[:, :, None],
-        state.pos[:, None, :, :], state.yaw[:, None, :], half[:, None, :],
-    )  # [W, A, A]
-    eye = torch.eye(hit_aa.shape[-1], dtype=torch.bool, device=hit_aa.device)
-    hit_aa = hit_aa & (active[:, :, None] & active[:, None, :] & ~eye)
-
-    other_t = agents.etype[:, None, :]
-    hit_veh = (hit_aa & (other_t == C.ET_VEHICLE)).any(dim=-1)
-    # Info attribution chain (src/sim.cpp:713-724): not road, not vehicle,
-    # type <= Cyclist => collidedWithNonVehicle.
-    hit_nonveh = (
-        hit_aa & (other_t != C.ET_VEHICLE) & (other_t <= C.ET_CYCLIST)
-    ).any(dim=-1)
-    any_aa = hit_aa.any(dim=-1)
-
-    # ---- agent vs road --------------------------------------------------
+def _agent_road_hits(scene: Scene, state: SimState, params: Params,
+                     active: torch.Tensor, half: torch.Tensor) -> torch.Tensor:
+    """[W, A] bool: each active agent against the road segments, on the
+    path ``params`` and the scene select (K1 tiles, the grid, top-K
+    candidates or K2 dense)."""
     use_grid = params.use_collision_grid and scene.grid is not None
     top_k = params.collision_top_k
     use_tiles = (
@@ -254,26 +231,62 @@ def collision_system(
         and top_k is None
     )
     if use_tiles:
-        any_ar = _tiled_road_hits(
+        return _tiled_road_hits(
             scene, state, agent_features(scene, state, active, half))
-    elif use_grid:
-        any_ar = _candidate_road_hits(scene, state, active, half,
-                                      _grid_candidates(scene.grid, state))
-    elif top_k is not None and top_k < scene.max_roads:
-        any_ar = _candidate_road_hits(
+    if use_grid:
+        return _candidate_road_hits(scene, state, active, half,
+                                    _grid_candidates(scene.grid, state))
+    if top_k is not None and top_k < scene.max_roads:
+        return _candidate_road_hits(
             scene, state, active, half,
             _top_k_candidates(scene, state, active, top_k))
-    else:
-        any_ar = agent_road_hits_dense(
-            agent_features(scene, state, active, half),
-            road_features_t(scene)) > 0.5
+    return agent_road_hits_dense(
+        agent_features(scene, state, active, half),
+        road_features_t(scene)) > 0.5
 
-    one = torch.ones((), dtype=torch.int32, device=active.device)
-    return state.replace(
-        collided=torch.where(any_aa | any_ar, one, state.collided),
-        collided_road=torch.where(any_ar, one, state.collided_road),
-        collided_vehicle=torch.where(hit_veh, one, state.collided_vehicle),
-        collided_non_vehicle=torch.where(
-            hit_nonveh, one, state.collided_non_vehicle
-        ),
-    )
+
+def collision_system(
+    scene: Scene, state: SimState, params: Params, cur_step: torch.Tensor
+) -> SimState:
+    """One collision pass; returns the state with collided/info flags set.
+
+    ``cur_step`` is the pre-decrement trajectory index [W, A]
+    (src/sim.cpp:23-25,640)."""
+    with span("sim.collision"):
+        agents = scene.agents
+        active = ~_skip_mask(scene, state, cur_step)
+        half = agent_half_extents(scene)
+
+        # ---- agent vs agent ---------------------------------------------
+        hit_aa = obb.obb_overlap_sat(
+            state.pos[:, :, None, :], state.yaw[:, :, None],
+            half[:, :, None], state.pos[:, None, :, :],
+            state.yaw[:, None, :], half[:, None, :],
+        )  # [W, A, A]
+        eye = torch.eye(hit_aa.shape[-1], dtype=torch.bool,
+                        device=hit_aa.device)
+        hit_aa = hit_aa & (active[:, :, None] & active[:, None, :] & ~eye)
+
+        other_t = agents.etype[:, None, :]
+        hit_veh = (hit_aa & (other_t == C.ET_VEHICLE)).any(dim=-1)
+        # Info attribution chain (src/sim.cpp:713-724): not road, not
+        # vehicle, type <= Cyclist => collidedWithNonVehicle.
+        hit_nonveh = (
+            hit_aa & (other_t != C.ET_VEHICLE) & (other_t <= C.ET_CYCLIST)
+        ).any(dim=-1)
+        any_aa = hit_aa.any(dim=-1)
+
+        # ---- agent vs road ----------------------------------------------
+        with span("sim.agent_road"):
+            any_ar = _agent_road_hits(scene, state, params, active, half)
+
+        one = torch.ones((), dtype=torch.int32, device=active.device)
+        return state.replace(
+            collided=torch.where(any_aa | any_ar, one, state.collided),
+            collided_road=torch.where(any_ar, one, state.collided_road),
+            collided_vehicle=torch.where(hit_veh, one,
+                                         state.collided_vehicle),
+            collided_non_vehicle=torch.where(
+                hit_nonveh, one, state.collided_non_vehicle
+            ),
+        )

@@ -18,6 +18,7 @@ import torch
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core import dynamics
 from gpudrive_lab_torch.core.collision import collision_system
+from gpudrive_lab_torch.utils.profiling import span
 from gpudrive_lab_torch.core.types import (
     CollisionBehaviour,
     DynamicsModel,
@@ -186,15 +187,16 @@ def _rest_of_tasks(
     """Shared tail of the Step and Reset graphs
     (reference: src/sim.cpp:785-943)."""
     state = collision_system(scene, state, params, cur_step)
-    state = _reward_system(scene, state, params)
-    if decrement_step:
-        state = state.replace(
-            steps_remaining=torch.where(
-                scene.agents.valid, state.steps_remaining - 1,
-                state.steps_remaining,
+    with span("sim.reward_done"):
+        state = _reward_system(scene, state, params)
+        if decrement_step:
+            state = state.replace(
+                steps_remaining=torch.where(
+                    scene.agents.valid, state.steps_remaining - 1,
+                    state.steps_remaining,
+                )
             )
-        )
-    return _done_system(scene, state, params)
+        return _done_system(scene, state, params)
 
 
 def step(
@@ -202,9 +204,12 @@ def step(
 ) -> SimState:
     """One Step-graph invocation (reference: src/sim.cpp:945-958).
     ``actions``: [W, A, 10] action-union rows (src/types.hpp:109-145)."""
-    cur_step = current_step_index(state)
-    state = _movement_system(scene, state, actions, params, cur_step)
-    return _rest_of_tasks(scene, state, params, cur_step, decrement_step=True)
+    with span("sim.step"):
+        cur_step = current_step_index(state)
+        with span("sim.movement"):
+            state = _movement_system(scene, state, actions, params, cur_step)
+        return _rest_of_tasks(scene, state, params, cur_step,
+                              decrement_step=True)
 
 
 def init_state(scene: Scene) -> SimState:
@@ -243,13 +248,14 @@ def init_state(scene: Scene) -> SimState:
 def select_worlds(mask: torch.Tensor, a: SimState, b: SimState) -> SimState:
     """Per-world select: world w of the result is ``a``'s where mask[w],
     else ``b``'s (mask [W] bool)."""
-    return SimState(**{
-        f.name: torch.where(
-            mask.reshape((-1,) + (1,) * (getattr(a, f.name).dim() - 1)),
-            getattr(a, f.name), getattr(b, f.name),
-        )
-        for f in dataclasses.fields(SimState)
-    })
+    with span("sim.reset"):
+        return SimState(**{
+            f.name: torch.where(
+                mask.reshape((-1,) + (1,) * (getattr(a, f.name).dim() - 1)),
+                getattr(a, f.name), getattr(b, f.name),
+            )
+            for f in dataclasses.fields(SimState)
+        })
 
 
 def reset(

@@ -42,6 +42,7 @@ from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.device import resolve_device
 from gpudrive_lab_torch.networks.flax_dtype import dense, gelu, layer_norm
 from gpudrive_lab_torch.networks.fused_embed import LN_EPS, fused_embed_pool
+from gpudrive_lab_torch.utils.profiling import span
 
 BF16 = torch.bfloat16
 
@@ -144,56 +145,58 @@ class LateFusionPolicy(nn.Module):
 
     def _pool(self, embed: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
         """max over the entity axis of embed(x); x [..., E, F]."""
-        if not self.config.fused_embed:
-            fn = _embed_max_bf16 if self.bf16 else _embed_max
-            if self.config.embed_remat and torch.is_grad_enabled():
-                return checkpoint(fn, embed, x, use_reentrant=False)
-            return fn(embed, x)
-        lin1, ln, _, _, lin2 = embed
-        lead = x.shape[:-2]
-        pooled = fused_embed_pool(
-            x.reshape((-1,) + x.shape[-2:]),
-            lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
-            lin2.weight.t().contiguous(), lin2.bias, self.config.act_func,
-            self.config.dtype,
-        ).reshape(lead + (lin2.out_features,))
-        return pooled.to(torch.bfloat16) if self.bf16 else pooled
+        with span("policy.embed_pool"):
+            if not self.config.fused_embed:
+                fn = _embed_max_bf16 if self.bf16 else _embed_max
+                if self.config.embed_remat and torch.is_grad_enabled():
+                    return checkpoint(fn, embed, x, use_reentrant=False)
+                return fn(embed, x)
+            lin1, ln, _, _, lin2 = embed
+            lead = x.shape[:-2]
+            pooled = fused_embed_pool(
+                x.reshape((-1,) + x.shape[-2:]),
+                lin1.weight.t().contiguous(), lin1.bias, ln.weight, ln.bias,
+                lin2.weight.t().contiguous(), lin2.bias,
+                self.config.act_func, self.config.dtype,
+            ).reshape(lead + (lin2.out_features,))
+            return pooled.to(torch.bfloat16) if self.bf16 else pooled
 
     def forward(self, obs):
         """obs [..., obs_dim], or the pre-split tuple (ego [..., E],
         partner [..., 127, 6], road [..., 200, 13]) -> (logits, value)."""
-        cfg = self.config
-        if isinstance(obs, tuple):
-            ego, partner, road = obs
-        else:
-            e = cfg.ego_feat_dim
-            p = (cfg.max_agents - 1) * C.PARTNER_FEAT_DIM
-            ego = obs[..., :e]
-            partner = obs[..., e:e + p].unflatten(
-                -1, (cfg.max_agents - 1, C.PARTNER_FEAT_DIM)
+        with span("policy.forward"):
+            cfg = self.config
+            if isinstance(obs, tuple):
+                ego, partner, road = obs
+            else:
+                e = cfg.ego_feat_dim
+                p = (cfg.max_agents - 1) * C.PARTNER_FEAT_DIM
+                ego = obs[..., :e]
+                partner = obs[..., e:e + p].unflatten(
+                    -1, (cfg.max_agents - 1, C.PARTNER_FEAT_DIM)
+                )
+                road = obs[..., e + p:].unflatten(
+                    -1, (cfg.top_k_roads, C.ROAD_GRAPH_FEAT_DIM)
+                )
+            lead = ego.shape[:-1]
+            feats = torch.cat(
+                [
+                    _embed_bf16(self.ego_embed, ego) if self.bf16
+                    else self.ego_embed(ego),
+                    self._pool(self.partner_embed, partner),
+                    self._pool(self.road_map_embed, road),
+                ],
+                dim=-1,
             )
-            road = obs[..., e + p:].unflatten(
-                -1, (cfg.top_k_roads, C.ROAD_GRAPH_FEAT_DIM)
-            )
-        lead = ego.shape[:-1]
-        feats = torch.cat(
-            [
-                _embed_bf16(self.ego_embed, ego) if self.bf16
-                else self.ego_embed(ego),
-                self._pool(self.partner_embed, partner),
-                self._pool(self.road_map_embed, road),
-            ],
-            dim=-1,
-        )
-        if self.bf16:
-            hidden = dense(self.shared_embed[0], feats, BF16)
-            logits = dense(self.actor, hidden, BF16).float()
-            value = dense(self.critic, hidden, BF16).float()[..., 0]
-        else:
-            hidden = self.shared_embed(feats)
-            logits = self.actor(hidden)
-            value = self.critic(hidden)[..., 0]
-        return logits.reshape(lead + (cfg.action_dim,)), value
+            if self.bf16:
+                hidden = dense(self.shared_embed[0], feats, BF16)
+                logits = dense(self.actor, hidden, BF16).float()
+                value = dense(self.critic, hidden, BF16).float()[..., 0]
+            else:
+                hidden = self.shared_embed(feats)
+                logits = self.actor(hidden)
+                value = self.critic(hidden)[..., 0]
+            return logits.reshape(lead + (cfg.action_dim,)), value
 
 
 def lecun_normal_(w: torch.Tensor, generator) -> None:

@@ -63,6 +63,7 @@ from gpudrive_lab_torch.networks.late_fusion import (
     sample_logits,
 )
 from gpudrive_lab_torch.parallel.mesh import WorldGroup
+from gpudrive_lab_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -350,50 +351,54 @@ class PPO:
         obs = flat_observation(scene, carry.state, self.params, self.spec,
                                reward_weights, cidx, split=self.split_store)[0]
         logits, value = self.policy(obs)
-        a, logp, _ = sample_logits(carry.rng, logits, action)
-        mask = self._gather_c(controlled & (carry.state.done == 0), cidx)
-        if cidx is None:
-            a_full = a
-        elif self.flat_mode:
-            # padding rows land on uncontrolled slots, inert in step()
-            a_full = torch.zeros((W, A), dtype=a.dtype, device=a.device)
-            a_full[cidx[0], cidx[1]] = a
-        else:
-            a_full = torch.zeros((W, A), dtype=a.dtype, device=a.device)
-            a_full.scatter_(1, cidx, a)
-        act = torch.zeros(a_full.shape + (C.ACTION_DIM,), dtype=torch.float32,
-                          device=a.device)
-        act[..., :3] = self.action_table[a_full.long()]
+        with span("ppo.action"):
+            a, logp, _ = sample_logits(carry.rng, logits, action)
+            mask = self._gather_c(controlled & (carry.state.done == 0), cidx)
+            if cidx is None:
+                a_full = a
+            elif self.flat_mode:
+                # padding rows land on uncontrolled slots, inert in step()
+                a_full = torch.zeros((W, A), dtype=a.dtype, device=a.device)
+                a_full[cidx[0], cidx[1]] = a
+            else:
+                a_full = torch.zeros((W, A), dtype=a.dtype, device=a.device)
+                a_full.scatter_(1, cidx, a)
+            act = torch.zeros(a_full.shape + (C.ACTION_DIM,),
+                              dtype=torch.float32, device=a.device)
+            act[..., :3] = self.action_table[a_full.long()]
         state = stepmod.step(scene, carry.state, act, self.params)
-        # world clock: advances unless some agent finished (the env's order)
-        valid = scene.agents.valid
-        any_done = ((state.done != 0) & valid).any(dim=1)
-        wts_mid = torch.where(any_done, carry.world_time_steps,
-                              carry.world_time_steps + 1)
-        reward = shaped_rewards(scene, state, self.reward_type,
-                                reward_weights, wts_mid)
-        done = (state.done != 0).to(torch.float32)
-        # auto-reset finished worlds (reference: env_puffer.py:265-386)
-        world_done = ((state.done != 0) | ~valid).all(dim=1)
-        n_ctrl = controlled.sum(dim=1).clamp(min=1)
+        with span("ppo.reward"):
+            # world clock: advances unless some agent finished (the env's
+            # order)
+            valid = scene.agents.valid
+            any_done = ((state.done != 0) & valid).any(dim=1)
+            wts_mid = torch.where(any_done, carry.world_time_steps,
+                                  carry.world_time_steps + 1)
+            reward = shaped_rewards(scene, state, self.reward_type,
+                                    reward_weights, wts_mid)
+            done = (state.done != 0).to(torch.float32)
+            # auto-reset finished worlds (reference: env_puffer.py:265-386)
+            world_done = ((state.done != 0) | ~valid).all(dim=1)
+            n_ctrl = controlled.sum(dim=1).clamp(min=1)
 
-        def frac(x):
-            return torch.where(world_done, (x * controlled).sum(dim=1)
-                               / n_ctrl, 0.0)
+            def frac(x):
+                return torch.where(world_done, (x * controlled).sum(dim=1)
+                                   / n_ctrl, 0.0)
 
-        t = Transition(
-            obs=None if cfg.remat_obs else _map_obs(
-                lambda o: o.to(getattr(torch, cfg.obs_store_dtype)), obs),
-            action=a, logprob=logp, value=value,
-            reward=self._gather_c(reward, cidx),
-            done=self._gather_c(done, cidx), mask=mask,
-            ep_done=world_done,
-            ep_goal=frac(state.reached_goal),
-            ep_collided=frac(torch.clamp(
-                state.collided_vehicle + state.collided_non_vehicle, 0, 1)),
-            ep_off_road=frac(torch.clamp(state.collided_road, 0, 1)),
-            env_state=carry.state if cfg.remat_obs else None,
-        )
+            t = Transition(
+                obs=None if cfg.remat_obs else _map_obs(
+                    lambda o: o.to(getattr(torch, cfg.obs_store_dtype)), obs),
+                action=a, logprob=logp, value=value,
+                reward=self._gather_c(reward, cidx),
+                done=self._gather_c(done, cidx), mask=mask,
+                ep_done=world_done,
+                ep_goal=frac(state.reached_goal),
+                ep_collided=frac(torch.clamp(
+                    state.collided_vehicle + state.collided_non_vehicle, 0,
+                    1)),
+                ep_off_road=frac(torch.clamp(state.collided_road, 0, 1)),
+                env_state=carry.state if cfg.remat_obs else None,
+            )
         state = stepmod.select_worlds(world_done, fresh, state)
         wts = torch.where(world_done,
                           torch.full_like(wts_mid, cfg.reset_time_step),
@@ -406,23 +411,26 @@ class PPO:
         """``rollout_len`` steps from ``carry``; returns (carry, traj) with
         the Transition fields stacked [T, ...].  ``actions`` [T, ...] int
         (the policy's ego layout) replaces the sampled actions."""
-        cidx = self.ctrl_slots(scene)
-        ts = []
-        for i in range(self.config.rollout_len):
-            carry, t = self._rollout_step(
-                scene, carry, fresh, reward_weights, cidx,
-                None if actions is None else actions[i])
-            ts.append(t)
-        return carry, Transition(
-            obs=None if ts[0].obs is None else (
-                tuple(torch.stack(x) for x in zip(*(t.obs for t in ts)))
-                if isinstance(ts[0].obs, tuple)
-                else torch.stack([t.obs for t in ts])),
-            env_state=(_stack_states([t.env_state for t in ts])
-                       if self.config.remat_obs else None),
-            **{f: torch.stack([getattr(t, f) for t in ts])
-               for f in Transition._fields if f not in ("obs", "env_state")},
-        )
+        with span("ppo.rollout"):
+            cidx = self.ctrl_slots(scene)
+            ts = []
+            for i in range(self.config.rollout_len):
+                with span("ppo.rollout_step"):
+                    carry, t = self._rollout_step(
+                        scene, carry, fresh, reward_weights, cidx,
+                        None if actions is None else actions[i])
+                ts.append(t)
+            return carry, Transition(
+                obs=None if ts[0].obs is None else (
+                    tuple(torch.stack(x) for x in zip(*(t.obs for t in ts)))
+                    if isinstance(ts[0].obs, tuple)
+                    else torch.stack([t.obs for t in ts])),
+                env_state=(_stack_states([t.env_state for t in ts])
+                           if self.config.remat_obs else None),
+                **{f: torch.stack([getattr(t, f) for t in ts])
+                   for f in Transition._fields
+                   if f not in ("obs", "env_state")},
+            )
 
     # ---- update ----------------------------------------------------------
 
@@ -432,12 +440,13 @@ class PPO:
         """The bootstrap value of the state after the rollout and GAE;
         returns the training batch (time-major tensors)."""
         cfg = self.config
-        last_obs = flat_observation(scene, carry.state, self.params,
-                                    self.spec, reward_weights,
-                                    self.ctrl_slots(scene))[0]
-        _, last_value = self.policy(last_obs)
-        advs, rets = compute_gae(traj.reward, traj.value, traj.done,
-                                 last_value, cfg.gamma, cfg.gae_lambda)
+        with span("ppo.prepare"):
+            last_obs = flat_observation(scene, carry.state, self.params,
+                                        self.spec, reward_weights,
+                                        self.ctrl_slots(scene))[0]
+            _, last_value = self.policy(last_obs)
+            advs, rets = compute_gae(traj.reward, traj.value, traj.done,
+                                     last_value, cfg.gamma, cfg.gae_lambda)
         batch = {"action": traj.action, "logprob": traj.logprob,
                  "value": traj.value, "adv": advs, "ret": rets,
                  "mask": traj.mask}
@@ -499,8 +508,9 @@ class PPO:
                 xt = xt[:, rstart:rstart + rows]
             return xt.reshape((-1,) + x.shape[self.batch_lead:])
 
-        mb = {k: _map_obs(take, v) if k == "obs" else take(v)
-              for k, v in batch.items()}
+        with span("ppo.gather"):
+            mb = {k: _map_obs(take, v) if k == "obs" else take(v)
+                  for k, v in batch.items()}
         if cfg.remat_obs:
             # recompute this minibatch's observations from the stored
             # pre-step states (only this row block's agents when row-sliced)
@@ -568,27 +578,38 @@ class PPO:
         if row_starts is None:
             row_starts = [[0] * len(p) for p in perms]
         row_starts = torch.as_tensor(row_starts).tolist()
-        cidx = self.ctrl_slots(scene) if cfg.remat_obs else None
-        auxes = []
-        for e in range(cfg.update_epochs):
-            for m in range(cfg.num_minibatches):
-                mb = self._minibatch(batch, traj, perms[e][m],
-                                     row_starts[e][m], scene,
-                                     reward_weights, cidx)
-                loss, aux = self.loss(mb, ent_coef)
-                self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                if self.group is not None:
-                    sync_gradients(self.policy.parameters(), self.group)
-                clip_by_global_norm(self.policy.parameters(),
-                                    cfg.max_grad_norm)
-                self.optimizer.step()
-                auxes.append(aux)
-        # each rank's terms are its own sums over the global mask sum
-        out = _global_sum(self.group, torch.stack(
-            [torch.stack([a[k] for a in auxes]) for k in names]))
+        with span("ppo.learn"):
+            cidx = self.ctrl_slots(scene) if cfg.remat_obs else None
+            auxes = []
+            for e in range(cfg.update_epochs):
+                for m in range(cfg.num_minibatches):
+                    with span("ppo.minibatch"):
+                        auxes.append(self._step(
+                            self._minibatch(batch, traj, perms[e][m],
+                                            row_starts[e][m], scene,
+                                            reward_weights, cidx),
+                            ent_coef))
+            # each rank's terms are its own sums over the global mask sum
+            out = _global_sum(self.group, torch.stack(
+                [torch.stack([a[k] for a in auxes]) for k in names]))
         return {k: out[i].reshape(cfg.update_epochs, cfg.num_minibatches)
                 for i, k in enumerate(names)}
+
+    def _step(self, mb: dict, ent_coef) -> dict:
+        """One optimizer step on the minibatch ``mb``; returns its loss
+        terms."""
+        with span("ppo.loss"):
+            loss, aux = self.loss(mb, ent_coef)
+        with span("ppo.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("ppo.optimizer"):
+            if self.group is not None:
+                sync_gradients(self.policy.parameters(), self.group)
+            clip_by_global_norm(self.policy.parameters(),
+                                self.config.max_grad_norm)
+            self.optimizer.step()
+        return aux
 
     @staticmethod
     def episode_metrics(traj: Transition,

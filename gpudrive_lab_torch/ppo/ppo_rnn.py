@@ -66,6 +66,7 @@ from gpudrive_lab_torch.ppo.ppo import (
     rank_rows,
     sync_gradients,
 )
+from gpudrive_lab_torch.utils.profiling import span
 
 
 class RnnCarry(NamedTuple):
@@ -231,14 +232,15 @@ class RnnPPO:
         """``rollout_len`` steps from ``carry``; returns (carry, traj), the
         RnnTransition fields stacked [T, ...].  ``actions`` [T, rows] int
         replaces the sampled actions."""
-        cidx = self.ctrl_slots(scene)
-        ts = []
-        for i in range(self.config.rollout_len):
-            carry, t = self._rollout_step(
-                scene, carry, fresh, reward_weights, cidx,
-                None if actions is None else actions[i])
-            ts.append(t)
-        return carry, RnnTransition(*(torch.stack(x) for x in zip(*ts)))
+        with span("ppo.rollout"):
+            cidx = self.ctrl_slots(scene)
+            ts = []
+            for i in range(self.config.rollout_len):
+                carry, t = self._rollout_step(
+                    scene, carry, fresh, reward_weights, cidx,
+                    None if actions is None else actions[i])
+                ts.append(t)
+            return carry, RnnTransition(*(torch.stack(x) for x in zip(*ts)))
 
     @torch.no_grad()
     def prepare(self, scene: Scene, carry: RnnCarry, traj: RnnTransition,
@@ -246,18 +248,19 @@ class RnnPPO:
         """The bootstrap value after the rollout (the LSTM state reset by
         ``reset_last``, as the next step would reset it) and GAE; returns
         the training batch, time-major."""
-        cfg = self.config
-        cidx = self.ctrl_slots(scene)
-        last_obs = flat_observation(scene, carry.state, self.params,
-                                    self.spec, reward_weights, cidx)[0]
-        reset_last = self.reset_signal(carry.state, carry.just_reset, cidx)
-        _, _, last_value = self.policy(last_obs, carry.lstm, reset_last)
-        advs, rets = compute_gae(traj.reward, traj.value, traj.done,
-                                 last_value, cfg.gamma, cfg.gae_lambda)
-        return {"obs": traj.obs, "reset_pre": traj.reset_pre,
-                "action": traj.action, "logprob": traj.logprob,
-                "value": traj.value, "adv": advs, "ret": rets,
-                "mask": traj.mask}
+        with span("ppo.prepare"):
+            cfg = self.config
+            cidx = self.ctrl_slots(scene)
+            last_obs = flat_observation(scene, carry.state, self.params,
+                                        self.spec, reward_weights, cidx)[0]
+            reset_last = self.reset_signal(carry.state, carry.just_reset, cidx)
+            _, _, last_value = self.policy(last_obs, carry.lstm, reset_last)
+            advs, rets = compute_gae(traj.reward, traj.value, traj.done,
+                                     last_value, cfg.gamma, cfg.gae_lambda)
+            return {"obs": traj.obs, "reset_pre": traj.reset_pre,
+                    "action": traj.action, "logprob": traj.logprob,
+                    "value": traj.value, "adv": advs, "ret": rets,
+                    "mask": traj.mask}
 
     def replay(self, obs, reset_pre, init_lstm):
         """The policy over a [T, rows, ...] sequence from ``init_lstm``:
@@ -331,30 +334,31 @@ class RnnPPO:
         if perms is None:
             perms = self.minibatch_order(B)
         perms = torch.as_tensor(perms).tolist()
-        auxes = []
-        for e in range(cfg.update_epochs):
-            for m in range(M):
-                idx = torch.as_tensor(perms[e][m])
-                if local is not None:
-                    idx = local[idx]
-                    idx = idx[idx >= 0]
-                idx = idx.to(dev)
-                mb = {k: v.index_select(1, idx) for k, v in batch.items()}
-                lstm0 = tuple(x.index_select(0, idx) for x in init_lstm)
-                loss, aux = self.loss(mb, lstm0, ent_coef)
-                self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                if self.group is not None:
-                    sync_gradients(self.policy.parameters(), self.group)
-                clip_by_global_norm(self.policy.parameters(),
-                                    cfg.max_grad_norm)
-                self.optimizer.step()
-                auxes.append(aux)
-        # each rank's terms are its own sums over the global mask sum
-        out = _global_sum(self.group, torch.stack(
-            [torch.stack([a[k] for a in auxes]) for k in LOSS_NAMES]))
-        return {k: out[i].reshape(cfg.update_epochs, M)
-                for i, k in enumerate(LOSS_NAMES)}
+        with span("ppo.learn"):
+            auxes = []
+            for e in range(cfg.update_epochs):
+                for m in range(M):
+                    idx = torch.as_tensor(perms[e][m])
+                    if local is not None:
+                        idx = local[idx]
+                        idx = idx[idx >= 0]
+                    idx = idx.to(dev)
+                    mb = {k: v.index_select(1, idx) for k, v in batch.items()}
+                    lstm0 = tuple(x.index_select(0, idx) for x in init_lstm)
+                    loss, aux = self.loss(mb, lstm0, ent_coef)
+                    self.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                    if self.group is not None:
+                        sync_gradients(self.policy.parameters(), self.group)
+                    clip_by_global_norm(self.policy.parameters(),
+                                        cfg.max_grad_norm)
+                    self.optimizer.step()
+                    auxes.append(aux)
+            # each rank's terms are its own sums over the global mask sum
+            out = _global_sum(self.group, torch.stack(
+                [torch.stack([a[k] for a in auxes]) for k in LOSS_NAMES]))
+            return {k: out[i].reshape(cfg.update_epochs, M)
+                    for i, k in enumerate(LOSS_NAMES)}
 
     def update(self, scene: Scene, carry: RnnCarry, traj: RnnTransition,
                reward_weights: torch.Tensor, init_lstm, ent_coef=None,

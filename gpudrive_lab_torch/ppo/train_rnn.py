@@ -165,6 +165,8 @@ def build(args):
 
 
 def main(argv=None):
+    """Train with the flags ``argv``; returns (env, rnn, carry, fresh), the
+    carry after the last iteration's rollout, for callers in process."""
     args = parse_args(argv)
     env, rnn, carry, fresh = build(args)
     arch = {"lstm_hidden": args.lstm_hidden,
@@ -212,6 +214,7 @@ def main(argv=None):
             if iteration % 25 == 0 or last:
                 save_checkpoint(ckpt_dir, rnn, global_step, arch)
     print(json.dumps({"final_global_step": global_step}))
+    return env, rnn, carry, fresh
 
 
 if __name__ == "__main__":

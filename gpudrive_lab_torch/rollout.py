@@ -19,8 +19,6 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
-import time
-
 import torch
 
 from gpudrive_lab_torch.env.config import EnvConfig
@@ -30,6 +28,8 @@ from gpudrive_lab_torch.networks.late_fusion import (
     PolicyConfig,
     sample_logits,
 )
+from gpudrive_lab_torch.utils import profiling
+from gpudrive_lab_torch.utils.profiling import span
 
 # EnvConfig options of the slice: classic dynamics with the 91-action
 # table, collisions ignored, KNN road observation (K = 200), and the
@@ -80,22 +80,8 @@ class RolloutResult:
     sensor_sum: torch.Tensor | None = None
 
 
-class _Clock:
-    """Phase marks: CUDA events on a CUDA device (read once at the end, so
-    marking does not synchronise), the host clock otherwise."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def mark(self):
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            return e
-        return time.perf_counter()
-
-    def ms(self, a, b) -> float:
-        return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+# rollout()'s phases, each timed by its span "rollout.<phase>"
+ROLLOUT_PHASES = ("obs", "policy", "step", "lidar", "bev", "camera", "reset")
 
 
 def rollout(
@@ -109,52 +95,50 @@ def rollout(
     """Run ``steps`` env steps from the env's current state with actions
     sampled from ``policy`` (argmax when ``deterministic``).  ``generator``
     draws the samples and lives on the env's device.  ``sensors`` also
-    collects the lidar, BEV and camera observations on every step."""
+    collects the lidar, BEV and camera observations on every step.  The
+    phases' times are the ``rollout.*`` spans' (``utils/profiling.py``):
+    only those record in this call, unless a profiler session or another
+    ``recording()`` block records every span."""
     W, A = env.num_worlds, env.max_agent_count
-    clock = _Clock(env.device)
-    actions, rewards, dones, marks = [], [], [], []
+    actions, rewards, dones = [], [], []
     acc = torch.zeros((), dtype=torch.float32, device=env.device)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.recording(
+            "rollout." + k for k in ROLLOUT_PHASES) as first:
         for _ in range(steps):
-            m = [clock.mark()]
-            obs = env.get_obs()
-            m.append(clock.mark())
-            logits, _ = policy(obs.reshape(W * A, -1))
-            action, _, _ = sample_logits(
-                generator, logits, deterministic=deterministic
-            )
-            m.append(clock.mark())
-            act = env.action_values(action.reshape(W, A))
-            env.step_dynamics(act)
-            rewards.append(env.get_rewards())
-            dones.append(env.get_dones())
-            m.append(clock.mark())
+            with span("rollout.obs"):
+                obs = env.get_obs()
+            with span("rollout.policy"):
+                logits, _ = policy(obs.reshape(W * A, -1))
+                action, _, _ = sample_logits(
+                    generator, logits, deterministic=deterministic
+                )
+            with span("rollout.step"):
+                act = env.action_values(action.reshape(W, A))
+                env.step_dynamics(act)
+                rewards.append(env.get_rewards())
+                dones.append(env.get_dones())
             if sensors:
-                acc = acc + env.get_lidar_obs(act)[..., 0].sum()
-                m.append(clock.mark())
-                acc = acc + env.get_bev_obs().sum()
-                m.append(clock.mark())
-                rgb, depth = env.get_camera_obs()
-                acc = acc + depth.sum() + rgb[..., 0].sum(dtype=torch.float32)
-                del rgb, depth
-                m.append(clock.mark())
-            env.reset_worlds(env.world_done())
-            m.append(clock.mark())
+                with span("rollout.lidar"):
+                    acc = acc + env.get_lidar_obs(act)[..., 0].sum()
+                with span("rollout.bev"):
+                    acc = acc + env.get_bev_obs().sum()
+                with span("rollout.camera"):
+                    rgb, depth = env.get_camera_obs()
+                    acc = acc + depth.sum() + rgb[..., 0].sum(
+                        dtype=torch.float32)
+                    del rgb, depth
+            with span("rollout.reset"):
+                env.reset_worlds(env.world_done())
             actions.append(action.reshape(W, A))
-            marks.append(m)
-    if clock.cuda:
-        torch.cuda.synchronize(env.device)
-    span = lambda i: sum(clock.ms(m[i], m[i + 1]) for m in marks)
-    sensor_ms = None
-    if sensors:
-        sensor_ms = {k: span(3 + i)
-                     for i, k in enumerate(("lidar", "bev", "camera"))}
+        ms = {k: sum(profiling.span_ms("rollout." + k, start=first))
+              for k in ROLLOUT_PHASES}
     return RolloutResult(
         actions=torch.stack(actions) if actions else None,
         rewards=torch.stack(rewards) if rewards else None,
         dones=torch.stack(dones) if dones else None,
-        sim_ms=span(0) + span(2) + span(6 if sensors else 3),
-        policy_ms=span(1),
-        sensor_ms=sensor_ms,
+        sim_ms=ms["obs"] + ms["step"] + ms["reset"],
+        policy_ms=ms["policy"],
+        sensor_ms={k: ms[k] for k in ("lidar", "bev", "camera")}
+        if sensors else None,
         sensor_sum=acc if sensors else None,
     )

@@ -11,7 +11,8 @@ then traces a few rollout steps with torch.profiler and prints:
     times; busy share = busy / wall);
   * device and host ms per step of each phase (obs, policy, step,
     rewards, reset: the kernels launched inside each phase's
-    record_function range, and the host's time inside it; with
+    record_function range, ``phase.<name>``, and the host's time inside
+    it; the port's own spans nest inside these ranges; with
     --sensors also lidar, bev and camera, each output reduced to a sum as
     the rollout's sensor option does);
   * the device activities with the most time, and with --sensors those of
@@ -85,27 +86,30 @@ def main() -> int:
     torch.cuda.synchronize()
     sensors = ("lidar", "bev", "camera") if args.sensors else ()
 
+    def ranged(name):
+        return record_function("phase." + name)
+
     def phase_step():
-        with record_function("obs"):
+        with ranged("obs"):
             obs = env.get_obs()
-        with record_function("policy"), torch.no_grad():
+        with ranged("policy"), torch.no_grad():
             logits, _ = policy(obs.reshape(W * A, -1))
             action, _, _ = sample_logits(gen, logits)
-        with record_function("step"):
+        with ranged("step"):
             act = env.action_values(action.reshape(W, A))
             env.step_dynamics(act)
-        with record_function("rewards"):
+        with ranged("rewards"):
             env.get_rewards()
             env.get_dones()
         if sensors:
-            with record_function("lidar"):
+            with ranged("lidar"):
                 env.get_lidar_obs(act)[..., 0].sum()
-            with record_function("bev"):
+            with ranged("bev"):
                 env.get_bev_obs().sum()
-            with record_function("camera"):
+            with ranged("camera"):
                 rgb, depth = env.get_camera_obs()
                 depth.sum() + rgb[..., 0].sum(dtype=torch.float32)
-        with record_function("reset"):
+        with ranged("reset"):
             env.reset_worlds(env.world_done())
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -118,10 +122,11 @@ def main() -> int:
     phases = ("obs", "policy", "step", "rewards", "reset") + sensors
     events = prof.events()
     # Device activity (kernels, copies, sets), without the device-side
-    # copies of the phase annotations.
+    # markers of the record_function ranges (the phases' and the port's
+    # spans).
     device = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name not in phases]
+              and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in device)
     by_kernel = defaultdict(lambda: [0.0, 0])
     for e in device:
@@ -131,14 +136,14 @@ def main() -> int:
     # Per phase: the device time of every kernel launched inside the
     # phase's record_function range (its nested ops included).
     ranges = [e for e in events
-              if e.name in phases
+              if e.name.startswith("phase.")
               and e.device_type == torch.autograd.DeviceType.CPU]
-    by_phase = {p: sum(e.device_time_total for e in ranges if e.name == p)
-                for p in phases}
+    by_phase = {p: sum(e.device_time_total for e in ranges
+                       if e.name == "phase." + p) for p in phases}
     # host time inside each range: Python, dispatch, launches and any wait
     # for the device (a synchronizing call)
-    host_phase = {p: sum(e.cpu_time_total for e in ranges if e.name == p)
-                  for p in phases}
+    host_phase = {p: sum(e.cpu_time_total for e in ranges
+                         if e.name == "phase." + p) for p in phases}
     n = args.steps
     print(f"worlds {W} rows {W * A} steps {n}: wall {wall:.3f} ms/step, "
           f"device busy {busy / 1e3 / n:.3f} ms/step "
@@ -156,7 +161,7 @@ def main() -> int:
         kern = defaultdict(lambda: [0.0, 0])
         cpu = torch.autograd.DeviceType.CPU
         for e in events:
-            if e.name != phase or e.device_type != cpu:
+            if e.name != "phase." + phase or e.device_type != cpu:
                 continue
             for k in _device_kernels(e):
                 kern[k.name[:100]][0] += k.duration
