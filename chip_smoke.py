@@ -13,8 +13,10 @@ it (65,536, 35,328 and 4,416), drives the main paths (a 91-step late-fusion
 policy rollout over the 512 worlds of data/pool_v3 with 128 agent rows; 10
 steps of the padded 2048-road tiled path; PPO training over the same 512
 worlds through build_trainer, with a checkpoint round trip and one dense
-iteration; then PPO with the bf16 policy dtype, K3 and K4 in their bf16
-compute mode, on the same worlds: phase 5b), holds K1 and K2 on a seeded
+iteration, and K5, the update's observation recompute, at one minibatch's
+8 x 4,416 rows with LINEAR roads, bit for bit against its plain version;
+then PPO with the bf16 policy dtype, K3 and K4 in their bf16 compute
+mode, on the same worlds: phase 5b), holds K1 and K2 on a seeded
 synthetic large map (10,240 roads, scene/large_map.py; phase 4), runs the
 sensors (lidar, BEV and camera on
 every step of a policy rollout over the same 512 worlds, then each sensor
@@ -86,11 +88,12 @@ the outputs, and prints:
     breakdown of one profiled train iteration, and per sensor its ms per
     call (CUDA events), its peak memory, its output's bytes / 3.35 TB/s as
     a floor and the samples, cells or pixels where card and CPU differ;
-  * one JSON line with every kernel (K1, K2, K3, K4, and K3 and K4 in
-    their bf16 compute mode: name, route, source, the TPU kernel it
-    replaces, launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, library_ms; for K1 and K2 also wrapper_ms and their
-    large-map reading; for K3 also its fp32-core bound and its time at
+  * one JSON line with every kernel (K1, K2, K3, K4, K3 and K4 in
+    their bf16 compute mode, and K5, its device time read in phase 7:
+    name, route, source, the TPU kernel it replaces, launches on the main
+    path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for
+    K1, K2 and K5 also wrapper_ms; for K1 and K2 their large-map
+    reading; for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
     rollout; for every kernel its launches in the dataset, il, rnn, vbd,
     periphery, ingest, collision, multi and entry phases, the multi
@@ -530,6 +533,65 @@ def k4_check(ppo, env, traj, gen) -> tuple[dict, float]:
     return k4, bf16_err
 
 
+def k5_check(ppo, env, traj) -> dict:
+    """K5 at the update's minibatch shape: the rows of rollout_len /
+    num_minibatches time steps of the flat compacted selection, the roads
+    selected LINEAR as the benchmark's train cell selects them, against
+    its plain version (bitwise, two launches equal); its time from CUDA
+    events beside its bound (the output written once) and the plain
+    version's.  Returns K5's record, with a function under "args" that
+    gives the arguments of one launch for its device time in phase 7: the
+    time steps K5 reads wait on the host until then, so that the phases in
+    between hold no more on the card than they would without K5."""
+    import dataclasses
+
+    import torch
+
+    from gpudrive_lab_torch.core.types import RoadObsAlgorithm, SimState
+    from gpudrive_lab_torch.env import flat_obs_kernel as k5
+
+    cfg = ppo.config
+    params = dataclasses.replace(env.params,
+                                 road_obs_algorithm=RoadObsAlgorithm.LINEAR)
+    t_idx = list(range(cfg.rollout_len // cfg.num_minibatches))
+    slots = ppo.ctrl_slots(env.scene)
+    args = (env.scene, traj.env_state, t_idx, slots, params, env.spec,
+            env.reward_weights)
+    got = twice(lambda: k5.flat_obs_rows(*args), "K5")
+    want = k5.flat_obs_rows_plain(*args)
+    torch.cuda.synchronize()
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(n_diff == 0, f"K5 differs from its plain version in {n_diff} "
+          f"of {got.numel()} floats")
+    rows = got.shape[0]
+    del got, want
+    wrapper = time_ms(lambda: k5.flat_obs_rows(*args), 20)
+    plain = time_ms(lambda: k5.flat_obs_rows_plain(*args), 3, warmup=1)
+    bms, by = bound(4 * rows * k5.OBS_DIM, 0)
+    rec = dict(name="K5 flat_obs_rows", route="cuda",
+               source="gpudrive_lab_torch/csrc/flat_obs.cu",
+               replaces="none: XLA fuses the JAX recompute "
+                        "(gpudrive_lab_tpu/ppo/ppo.py, env_jax.py:"
+                        "flat_observation)",
+               library_ms=None, ms=0.0, wrapper_ms=wrapper, plain_ms=plain,
+               bound_ms=bms, bound_by=by, max_abs_err=0.0,
+               parity="bitwise equal to plain; two launches bitwise equal",
+               shape=f"[{rows},3368] ({len(t_idx)} steps x "
+                     f"{rows // len(t_idx)} flat rows, LINEAR roads)")
+    dev = traj.env_state.pos.device
+    held = [getattr(traj.env_state, f.name)[:len(t_idx)].cpu()
+            for f in dataclasses.fields(SimState)]
+    slots = tuple(c.cpu() for c in slots)  # the flat (world, agent) pairs
+    rec["args"] = lambda: (
+        env.scene, SimState(*(x.to(dev) for x in held)), t_idx,
+        tuple(c.to(dev) for c in slots), params, env.spec,
+        env.reward_weights)
+    print(f"[K5] {rec['shape']}: bitwise equal to plain, two launches "
+          f"equal; wrapper {wrapper:.4f} ms per call (CUDA events), plain "
+          f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
+    return rec
+
+
 def timed_iteration(ppo, env, carry, fresh, what: str):
     """One PPO iteration that must not wait on the card, timed: (carry,
     samples, wall s, (rollout, gae, update) ms from CUDA events, the mean
@@ -562,19 +624,21 @@ def timed_iteration(ppo, env, carry, fresh, what: str):
             tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3)), loss)
 
 
-def train_phase(env, scenes, gen) -> tuple[dict, float, dict]:
+def train_phase(env, scenes, gen) -> tuple[dict, float, dict, dict]:
     """PPO on the slice's 512 worlds through build_trainer: one warm-up
-    iteration, K4 against its plain version, TRAIN_ITERS timed iterations
-    with the launch counts read around them, one iteration under
-    torch.profiler, a checkpoint round trip, and one dense iteration on the
-    first DENSE_WORLDS worlds.  Returns K4's kernel record, K4-bf16's error
-    on float32 x (k4_check) and the timed iterations' summary."""
+    iteration, K4 and K5 against their plain versions, TRAIN_ITERS timed
+    iterations with the launch counts read around them, one iteration
+    under torch.profiler, a checkpoint round trip, and one dense iteration
+    on the first DENSE_WORLDS worlds.  Returns K4's kernel record,
+    K4-bf16's error on float32 x (k4_check), the timed iterations' summary
+    and K5's record (k5_check)."""
     import dataclasses
     import tempfile
 
     import torch
     from torch.profiler import record_function
 
+    from gpudrive_lab_torch.env import flat_obs_kernel
     from gpudrive_lab_torch.networks import fused_embed as fe
     from gpudrive_lab_torch.networks.late_fusion import LateFusionPolicy
     from gpudrive_lab_torch.ppo.ppo import PPOConfig
@@ -604,12 +668,14 @@ def train_phase(env, scenes, gen) -> tuple[dict, float, dict]:
     carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
     global_step = float(ppo.update(env.scene, carry, traj, rw)["samples"])
     k4, k4_bf16_f32x_err = k4_check(ppo, env, traj, gen)
+    k5 = uncounted(lambda: k5_check(ppo, env, traj))
     del traj
 
     before = [p.detach().clone() for p in ppo.policy.parameters()]
     torch.cuda.synchronize()
     for f in (fe.fused_embed_pool_fwd, fe.fused_embed_pool_bwd):
         f.launches = f.bf16_launches = 0
+    flat_obs_kernel.flat_obs_rows.launches = 0
     rates, splits = [], []
     for it in range(TRAIN_ITERS):
         n0 = fe.fused_embed_pool_bwd.launches
@@ -627,6 +693,11 @@ def train_phase(env, scenes, gen) -> tuple[dict, float, dict]:
               f"samples/s {samples / wall:.1f}; K4 launches {n4}; "
               + ", ".join(f"{k} {v:.5f}" for k, v in loss.items()))
     k4["launches"] = fe.fused_embed_pool_bwd.launches
+    k5["launches"] = flat_obs_kernel.flat_obs_rows.launches
+    n5 = (TRAIN_ITERS * cfg.update_epochs * cfg.num_minibatches
+          if flat_obs_kernel.supports(env.spec, env.params) else 0)
+    check(k5["launches"] == n5, f"K5 launched {k5['launches']} times in the "
+          f"timed iterations, expected {n5}")
     check(fe.fused_embed_pool_fwd.bf16_launches == 0
           and fe.fused_embed_pool_bwd.bf16_launches == 0,
           "the float32 iterations launched the bf16 mode")
@@ -703,7 +774,7 @@ def train_phase(env, scenes, gen) -> tuple[dict, float, dict]:
           f"iteration of this trainer), {dm['samples']:.0f} samples, "
           f"pg_loss {dm['pg_loss']:.5f}, v_loss {dm['v_loss']:.5f}; "
           f"K4 launches {n4}")
-    return k4, k4_bf16_f32x_err, summary
+    return k4, k4_bf16_f32x_err, summary, k5
 
 
 def bf16_train_phase(env, gen, f32: dict) -> tuple[dict, dict]:
@@ -1007,6 +1078,7 @@ PREFETCH_STEPS = 5  # rollout steps that overlap a prefetch
 def counts() -> dict:
     """Every kernel's launch count."""
     from gpudrive_lab_torch.core import kernels
+    from gpudrive_lab_torch.env import flat_obs_kernel
     from gpudrive_lab_torch.networks import fused_embed as fe
 
     return {"K1": kernels.agent_road_hits_tiled.launches,
@@ -1014,13 +1086,16 @@ def counts() -> dict:
             "K3": fe.fused_embed_pool_fwd.launches,
             "K4": fe.fused_embed_pool_bwd.launches,
             "K3-bf16": fe.fused_embed_pool_fwd.bf16_launches,
-            "K4-bf16": fe.fused_embed_pool_bwd.bf16_launches}
+            "K4-bf16": fe.fused_embed_pool_bwd.bf16_launches,
+            "K5": flat_obs_kernel.flat_obs_rows.launches}
 
 
 def set_counts(c: dict) -> None:
     from gpudrive_lab_torch.core import kernels
+    from gpudrive_lab_torch.env import flat_obs_kernel
     from gpudrive_lab_torch.networks import fused_embed as fe
 
+    flat_obs_kernel.flat_obs_rows.launches = c["K5"]
     kernels.agent_road_hits_tiled.launches = c["K1"]
     kernels.agent_road_hits_dense.launches = c["K2"]
     fe.fused_embed_pool_fwd.launches = c["K3"]
@@ -3665,6 +3740,7 @@ def main() -> int:
 
     from gpudrive_lab_torch import cuda_build
     from gpudrive_lab_torch.core import collision, kernels
+    from gpudrive_lab_torch.env import flat_obs_kernel
     from gpudrive_lab_torch.networks import fused_embed as fe
     from gpudrive_lab_torch.utils.profiling import kernel_time_ms
 
@@ -3974,7 +4050,8 @@ def main() -> int:
     lrec = large_map_phase(kernels, dev)
 
     # ---- phase 5: the training path, PPO over the 512 worlds -------------
-    results["K4"], k4b_f32x_err, f32_train = train_phase(env, scenes, gen)
+    results["K4"], k4b_f32x_err, f32_train, results["K5"] = train_phase(
+        env, scenes, gen)
 
     # ---- phase 5b: PPO with the bf16 policy dtype (K3/K4 bf16 mode) -------
     k3b_train, results["K4-bf16"] = bf16_train_phase(env, gen, f32_train)
@@ -4069,7 +4146,9 @@ def main() -> int:
             ("[large map] K2", lrec["K2"], kernels.agent_road_hits_dense,
              (lmap.agents, lmap.roads_t), "ar_dense_kernel"),
             ("[large map] K1", lrec["K1"], kernels.agent_road_hits_tiled,
-             (lmap.agents_s, tiles, lmap.mask), "ar_tiled_kernel")):
+             (lmap.agents_s, tiles, lmap.mask), "ar_tiled_kernel"),
+            ("[K5]", results["K5"], flat_obs_kernel.flat_obs_rows,
+             results["K5"].pop("args")(), "flat_obs_kernel")):
         rec["ms"] = kernel_time_ms(lambda: fn(*args), KERNEL_REPS, kernel)
         print(f"{what} {rec['shape']}: kernel {rec['ms']:.4f} ms (device), "
               f"wrapper {rec['wrapper_ms']:.4f} ms per call, bound "
@@ -4079,7 +4158,7 @@ def main() -> int:
 
     line = {"kernels": []}
     for key in ("K1", "K2", "K3", "K4", "K3-bf16", "K3-bf16, 4,416 rows",
-                "K4-bf16"):
+                "K4-bf16", "K5"):
         r = results[key]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

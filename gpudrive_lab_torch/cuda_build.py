@@ -25,9 +25,13 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 # Per-source flags.  agent_road: exact SAT, no FMA contraction (see the
-# source's header comment).
+# source's header comment).  flat_obs writes its arithmetic with the _rn
+# intrinsics, which are never contracted, and keeps the default flags that
+# PyTorch's own kernels, whose sinf, cosf and atan2f it must match, are
+# built with.
 FLAGS = {
     "agent_road": ["--fmad=false"],
+    "flat_obs": [],
     "fused_embed": [],
     "fused_embed_bf16": [],
     "fused_embed_bwd": [],

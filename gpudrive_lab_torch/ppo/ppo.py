@@ -9,7 +9,10 @@ auto-resets finished worlds by a per-world select against the ``fresh``
 state, and nothing in the rollout or the update reads a device value on the
 host.  ``PPO`` holds the policy (an ``nn.Module``) and its
 ``torch.optim.Adam``; the JAX package's ``make_ppo_funcs`` closures become
-its methods.
+its methods.  With ``remat_obs`` the update recomputes each minibatch's
+observations from the stored pre-step states: all its time steps in one
+launch of kernel K5 where ``flat_obs_kernel.supports`` the spec, else one
+``flat_observation`` per time step (env/flat_obs_kernel.py).
 
 Random streams.  Actions are drawn from ``EnvCarry.rng``, a
 ``torch.Generator`` on the env's device; the minibatch order comes from
@@ -53,6 +56,7 @@ import torch
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core import step as stepmod
 from gpudrive_lab_torch.core.types import Params, Scene, SimState
+from gpudrive_lab_torch.env import flat_obs_kernel as k5
 from gpudrive_lab_torch.env.env_torch import (
     ObsSpec,
     flat_observation,
@@ -219,13 +223,6 @@ def _map_obs(fn, obs):
 def _stack_states(states) -> SimState:
     return SimState(**{
         f.name: torch.stack([getattr(s, f.name) for s in states])
-        for f in dataclasses.fields(SimState)
-    })
-
-
-def _state_at(states: SimState, t: int) -> SimState:
-    return SimState(**{
-        f.name: getattr(states, f.name)[t]
         for f in dataclasses.fields(SimState)
     })
 
@@ -516,10 +513,11 @@ class PPO:
             # pre-step states (only this row block's agents when row-sliced)
             if rows:
                 cidx = tuple(c[rstart:rstart + rows] for c in cidx)
-            obs = [flat_observation(scene, _state_at(traj.env_state, t),
-                                    self.params, self.spec, reward_weights,
-                                    cidx)[0] for t in t_idx]
-            mb["obs"] = torch.stack(obs).reshape(-1, obs[0].shape[-1])
+            recompute = (k5.flat_obs_rows if k5.supports(self.spec,
+                                                         self.params)
+                         else k5.flat_obs_rows_plain)
+            mb["obs"] = recompute(scene, traj.env_state, t_idx, cidx,
+                                  self.params, self.spec, reward_weights)
         elif cfg.policy_dtype == "float32":
             mb["obs"] = _map_obs(lambda o: o.to(torch.float32), mb["obs"])
         # else the store goes to the bf16 policy as it is: its Dense layers
