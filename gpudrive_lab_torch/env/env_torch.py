@@ -584,9 +584,9 @@ class GPUDriveTorchEnv:
                 # the logged trajectories until a source is installed
                 self.vbd_trajectories = log_replay_trajectories(
                     self.scene, self.state)
-            obs = torch.cat(
-                [obs, egocentric_vbd_obs(self.state, self.vbd_trajectories)],
-                dim=-1)
+            with span("obs.vbd"):
+                vbd = egocentric_vbd_obs(self.state, self.vbd_trajectories)
+            obs = torch.cat([obs, vbd], dim=-1)
         n = self.config.num_stack
         if n > 1:
             if reset or self.stacked_obs is None:
@@ -606,9 +606,11 @@ class GPUDriveTorchEnv:
             base = shaped_rewards(
                 self.scene, self.state, "weighted_combination",
                 self.reward_weights, self.world_time_steps)
-            return base + vbd_distance_reward(
-                self.state, self.vbd_trajectories, self.world_time_steps,
-                self.config.vbd_trajectory_weight)
+            with span("reward.vbd"):
+                bonus = vbd_distance_reward(
+                    self.state, self.vbd_trajectories, self.world_time_steps,
+                    self.config.vbd_trajectory_weight)
+            return base + bonus
         return shaped_rewards(
             self.scene, self.state, self.config.reward_type,
             self.reward_weights, self.world_time_steps,

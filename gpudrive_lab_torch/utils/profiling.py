@@ -11,8 +11,9 @@ per launch from one.
 
 ``span(name)`` marks a layer of the program where its work happens (the
 bench step, the sim step and its systems, the observation and its blocks,
-the PPO phases and minibatches).  Off, a span costs one check of two flags.
-It records while a torch.profiler session records, and inside a
+the PPO phases and minibatches, the official VBD sample's stages and the
+env's VBD observation block and reward).  Off, a span costs one check of
+two flags.  It records while a torch.profiler session records, and inside a
 ``recording()`` block (only the spans a ``recording(names)`` block names,
 where nothing else records).  Then it opens ``record_function(name)`` when a
 profiler session is on (the span sits in the profiler's trace, on the

@@ -21,6 +21,7 @@ import torch
 
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core.types import Scene, SimState
+from gpudrive_lab_torch.utils.profiling import span
 from gpudrive_lab_torch.vbd.data_utils import (
     VBDSampleConfig,
     official_inputs,
@@ -128,14 +129,25 @@ class OfficialVBDSource:
         return cls(model, config, seed=seed)
 
     def __call__(self, scene: Scene, state: SimState) -> torch.Tensor:
+        """The sample as span ``vbd.sample`` around ``vbd.prepare`` (the
+        host's batch, ``vbd.batch``, and the inputs with the relations on
+        the device, ``vbd.inputs``), the sampler's spans and
+        ``vbd.scatter``."""
         cfg = self.config
-        batch = process_scenario_data(
-            scene, state, current_step=0,
-            config=VBDSampleConfig(max_agents=cfg.agents_len))
-        out = sample_official(self.model, self.scheduler,
-                              official_inputs(batch), cfg, self.noise)
-        return scatter_trajectories(out["denoised_trajs"],
-                                    batch["agents_id"], state.pos.shape[1])
+        with span("vbd.sample"):
+            with span("vbd.prepare"):
+                with span("vbd.batch"):
+                    batch = process_scenario_data(
+                        scene, state, current_step=0,
+                        config=VBDSampleConfig(max_agents=cfg.agents_len))
+                with span("vbd.inputs"):
+                    inputs = official_inputs(batch)
+            out = sample_official(self.model, self.scheduler, inputs, cfg,
+                                  self.noise)
+            with span("vbd.scatter"):
+                return scatter_trajectories(out["denoised_trajs"],
+                                            batch["agents_id"],
+                                            state.pos.shape[1])
 
 
 def egocentric_vbd_obs(state: SimState,

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gpudrive_lab_torch.device import resolve_device
+from gpudrive_lab_torch.utils.profiling import span
 from gpudrive_lab_torch.vbd.model import (
     DDPMScheduler,
     NoiseSource,
@@ -540,19 +541,33 @@ def sample_official(model: OfficialVBD, scheduler: DDPMScheduler,
     normalised action space).  Draws: x_T, then one noise per step.
 
     Returns denoised_actions [B, A, T, 2] (unnormalised) and
-    denoised_trajs [B, A, future_len, 5] (global frame)."""
+    denoised_trajs [B, A, future_len, 5] (global frame).  Spans
+    ``vbd.encode``, one ``vbd.denoise`` a diffusion step (the denoiser and
+    the scheduler step) and ``vbd.rollout``; counts its calls in
+    ``sample_official.samples`` and its diffusion steps in
+    ``sample_official.denoise_steps``."""
     cfg = config or model.config
     hist = inputs["agents_history"]
     draws = as_draws(noise, hist.device)
     B, A, T = hist.shape[0], cfg.agents_len, cfg.seq_len
-    enc = model.encode(inputs)
+    sample_official.samples += 1
+    with span("vbd.encode"):
+        enc = model.encode(inputs)
     x_t = draws.normal((B, A, T, 2))
     for step in reversed(range(cfg.diffusion_steps)):
-        t_arr = torch.full((B, A), step, dtype=torch.long, device=hist.device)
-        x0 = model.denoise(enc, x_t, t_arr)
-        x_t = scheduler.step(x0, x_t, step, draws)
-    actions = x_t * x_t.new_tensor(cfg.action_std) + x_t.new_tensor(
-        cfg.action_mean)
-    trajs = roll_out(enc["agents"][:, :A, -1, :5], actions,
-                     action_len=cfg.action_len, global_frame=True)
+        sample_official.denoise_steps += 1
+        with span("vbd.denoise"):
+            t_arr = torch.full((B, A), step, dtype=torch.long,
+                               device=hist.device)
+            x0 = model.denoise(enc, x_t, t_arr)
+            x_t = scheduler.step(x0, x_t, step, draws)
+    with span("vbd.rollout"):
+        actions = x_t * x_t.new_tensor(cfg.action_std) + x_t.new_tensor(
+            cfg.action_mean)
+        trajs = roll_out(enc["agents"][:, :A, -1, :5], actions,
+                         action_len=cfg.action_len, global_frame=True)
     return {"denoised_actions": actions, "denoised_trajs": trajs}
+
+
+sample_official.samples = 0
+sample_official.denoise_steps = 0

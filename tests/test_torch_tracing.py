@@ -305,3 +305,66 @@ def test_chip_smokes_phase_timer_reads_the_ppo_spans(env):
     assert set(it) == {"rollout", "gae", "update"}
     assert all(v > 0 for v in it.values())
     assert profiling.recorded() == []
+
+
+# one OfficialVBDSource sample's spans, as the code nests them
+VBD_STEPS = 3
+VBD_TREE = ("vbd.sample", (
+    ("vbd.prepare", (("vbd.batch", ()), ("vbd.inputs", ()))),
+    ("vbd.encode", ()),
+    *(("vbd.denoise", ()),) * VBD_STEPS,
+    ("vbd.rollout", ()),
+    ("vbd.scatter", ()),
+))
+
+
+@pytest.fixture(scope="module")
+def vbd_source():
+    """The official VBD at full width with 8 agents, 3 diffusion steps and
+    one encoder layer, seeded."""
+    from gpudrive_lab_torch.vbd import integration, model_official
+
+    cfg = model_official.OfficialVBDConfig(
+        agents_len=8, diffusion_steps=VBD_STEPS, encoder_layers=1)
+    model = model_official.OfficialVBD(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    return integration.OfficialVBDSource(model.eval(), seed=2)
+
+
+def test_a_vbd_sample_records_its_stages(env, vbd_source):
+    with profiling.recording():
+        trajs = vbd_source(env.scene, env.state)
+    assert top_trees(profiling.recorded()) == [VBD_TREE]
+    assert trajs.shape[:2] == env.scene.agents.valid.shape
+    assert len(profiling.span_ms("vbd.denoise", "vbd.sample")) == VBD_STEPS
+
+
+def test_the_sampler_counts_samples_and_diffusion_steps(env, vbd_source):
+    from gpudrive_lab_torch.vbd.model_official import sample_official
+
+    before = sample_official.samples, sample_official.denoise_steps
+    vbd_source(env.scene, env.state)
+    assert (sample_official.samples - before[0],
+            sample_official.denoise_steps - before[1]) == (1, VBD_STEPS)
+    assert profiling.recorded() == []  # off, the spans record nothing
+
+
+@pytest.mark.parametrize("use_vbd", [True, False])
+def test_the_vbd_obs_and_reward_spans_run_only_with_use_vbd(use_vbd):
+    from gpudrive_lab_torch.env.config import EnvConfig
+    from gpudrive_lab_torch.env.env_torch import GPUDriveTorchEnv
+    from gpudrive_lab_torch.rollout import SLICE_CONFIG
+
+    vbd = dict(use_vbd=True, vbd_in_obs=True,
+               reward_type="distance_to_vdb_trajs") if use_vbd else {}
+    env = GPUDriveTorchEnv(EnvConfig(**dict(
+        SLICE_CONFIG, agent_bucket="auto", **vbd)),
+        pool_scene_paths(ROOT)[20:22], device="cpu")
+    with profiling.recording():
+        env.step_dynamics(None)
+        env.get_obs()
+        env.get_rewards()
+    names = [r.name for r in profiling.recorded()]
+    want = 1 if use_vbd else 0
+    assert names.count("obs.vbd") == names.count("reward.vbd") == want
+    assert names.count("obs") == 1
