@@ -17,7 +17,10 @@ iteration, and K5, the update's observation recompute, at one minibatch's
 8 x 4,416 rows with LINEAR roads, bit for bit against its plain version;
 then PPO with the bf16 policy dtype, K3 and K4 in their bf16 compute
 mode, on the same worlds: phase 5b), holds K1 and K2 on a seeded
-synthetic large map (10,240 roads, scene/large_map.py; phase 4), runs the
+synthetic large map (10,240 roads, scene/large_map.py; phase 4) and K6,
+the env step's observation with KNEAREST roads, at the sim cells' shapes
+(the 512 pool worlds and 256 large-map worlds, agent bucket 32) against
+its plain version, runs the
 sensors (lidar, BEV and camera on
 every step of a policy rollout over the same 512 worlds, then each sensor
 against the same port function on the CPU for the first 4 worlds: the
@@ -89,11 +92,12 @@ the outputs, and prints:
     call (CUDA events), its peak memory, its output's bytes / 3.35 TB/s as
     a floor and the samples, cells or pixels where card and CPU differ;
   * one JSON line with every kernel (K1, K2, K3, K4, K3 and K4 in
-    their bf16 compute mode, and K5, its device time read in phase 7:
-    name, route, source, the TPU kernel it replaces, launches on the main
-    path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for
-    K1, K2 and K5 also wrapper_ms; for K1 and K2 their large-map
-    reading; for K3 also its fp32-core bound and its time at
+    their bf16 compute mode, K5 and K6, their device times read in phase
+    7: name, route, source, the TPU kernel it replaces, launches on the
+    main path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms;
+    for K1, K2, K5 and K6 also wrapper_ms; for K1, K2 and K6 their
+    large-map reading; for K6 its two kernels' device ms (select_ms,
+    step_ms); for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
     rollout; for every kernel its launches in the dataset, il, rnn, vbd,
     periphery, ingest, collision, multi and entry phases, the multi
@@ -592,6 +596,129 @@ def k5_check(ppo, env, traj) -> dict:
     return rec
 
 
+def k6_inputs(root: str, dev) -> list:
+    """K6's inputs at the sim cells' shapes, roads selected KNEAREST in a
+    50 m radius as the cells select them: (label, scene, state, params) of
+    the 512 pool worlds (agent bucket 32) after 5 random steps, and of 256
+    large-map worlds of 10,240 roads (bucket 32, 24 vehicles)."""
+    import torch
+
+    from gpudrive_lab_torch.core.types import Params, RoadObsAlgorithm
+    from gpudrive_lab_torch.rollout import pool_scene_paths, slice_env
+    from gpudrive_lab_torch.scene.large_map import LARGE_MAP, large_map_scene
+
+    env = slice_env(pool_scene_paths(root), device=dev, agent_bucket="auto",
+                    road_obs_algorithm="k_nearest_roadpoints",
+                    obs_radius=50.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for _ in range(5):
+        env.step_dynamics(torch.randint(
+            0, env.action_space_n, env.scene.agents.valid.shape,
+            generator=gen, device=dev))
+    scene, state, _ = large_map_scene(**dict(LARGE_MAP, W=256, A=32),
+                                      seed=SEED, device=dev, grid=False)
+    params = Params(road_obs_algorithm=RoadObsAlgorithm.KNEAREST,
+                    observation_radius=50.0)
+    return [("pool", env.scene, env.state, env.params),
+            ("large map", scene, state, params)]
+
+
+def k6_in_radius(scene, state, params):
+    """Per agent row [W, A]: the valid roads within the radius (none for a
+    padded row), and whether two of the 201 nearest of them share a d2
+    (where torch.topk may order them, or keep another road, otherwise than
+    K6's lower index first)."""
+    import torch
+
+    W = scene.agents.valid.shape[0]
+    n, tie = [], []
+    for w in range(0, W, 16):
+        d = (scene.roads.pos[w:w + 16, None, :, :2]
+             - state.pos[w:w + 16, :, None])
+        d2 = (d * d).sum(-1)
+        within = (scene.roads.valid[w:w + 16, None]
+                  & scene.agents.valid[w:w + 16, :, None]
+                  & (d2 <= params.observation_radius ** 2))
+        n.append(within.sum(-1))
+        top = torch.topk(torch.where(within, d2, float("inf")),
+                         min(201, d2.shape[-1]), dim=-1, largest=False).values
+        tie.append(((top[..., :-1] == top[..., 1:])
+                    & torch.isfinite(top[..., 1:])).any(-1))
+    return torch.cat(n), torch.cat(tie)
+
+
+def k6_check(root: str, dev) -> dict:
+    """K6 at the sim cells' shapes (k6_inputs), every agent row: two calls
+    bitwise equal and against flat_observation_plain bit for bit, the
+    partner_mask everywhere, the rows and their road_mask but where two of
+    an ego's 201 nearest roads share a d2 (counted apart); the wrapper's
+    time per call (CUDA events),
+    the plain version's and the bound: the rows and masks written once,
+    the indices written and read once.  Returns K6's record, the
+    large map's under "large_map"; phase 7 adds the device times."""
+    import torch
+
+    from gpudrive_lab_torch.env import flat_obs_kernel as k6
+    from gpudrive_lab_torch.env.env_torch import (
+        ObsSpec,
+        flat_observation_plain,
+    )
+
+    spec = ObsSpec()
+    rec = dict(name="K6 flat_obs_step", route="cuda",
+               source="gpudrive_lab_torch/csrc/flat_obs.cu",
+               replaces="none: XLA fuses the JAX package's observation "
+                        "(gpudrive_lab_tpu/env/env_jax.py:flat_observation)",
+               library_ms=None, ms=0.0, max_abs_err=0.0,
+               parity="rows, partner_mask and road_mask bitwise equal to "
+                      "plain but in rows where two roads tie in d2; two "
+                      "calls bitwise equal")
+    for label, scene, state, params in k6_inputs(root, dev):
+        got = k6.flat_obs_step(scene, state, params, spec)
+        again = k6.flat_obs_step(scene, state, params, spec)
+        want = flat_observation_plain(scene, state, params, spec, None)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"K6 {label}: two calls differ")
+        obs = got[0]
+        check(torch.equal(got[1], want[1]),
+              f"K6 {label}: partner_mask differs from plain")
+        same = ((obs.view(torch.int32) == want[0].view(torch.int32)).all(-1)
+                & (got[2] == want[2]).all(-1)).reshape(-1)
+        in_radius, tie = k6_in_radius(scene, state, params)
+        tie = tie.reshape(-1)
+        check(bool((same | tie).all()), f"K6 {label}: "
+              f"{int((~same & ~tie).sum())} rows differ from plain")
+        valid = scene.agents.valid
+        entries = int(in_radius.clamp(max=200)[valid].sum())
+        W, A = valid.shape
+        rows = W * A
+        bms, by = bound(rows * (4 * k6.OBS_DIM + 4 * 127 + 200)
+                        + 4 * (rows + int(valid.sum())) + 8 * entries, 0)
+        del got, again, want
+        wrapper = time_ms(lambda: k6.flat_obs_step(scene, state, params,
+                                                   spec), 20)
+        plain = time_ms(lambda: flat_observation_plain(
+            scene, state, params, spec, None), 3, warmup=1)
+        shape = (f"[{W},{A},3368] + masks, {scene.roads.valid.shape[1]} "
+                 f"roads, KNEAREST")
+        out = dict(shape=shape, wrapper_ms=wrapper, plain_ms=plain,
+                   bound_ms=bms, bound_by=by,
+                   rows_over_200=int((in_radius[valid] > 200).sum()),
+                   tie_rows=int(tie.sum()))
+        if label == "pool":
+            rec.update(out)
+        else:
+            rec["large_map"] = out
+        print(f"[K6] {label} {shape}: bitwise equal to plain but in "
+              f"{out['tie_rows']} rows with a d2 tie, two calls equal; "
+              f"{out['rows_over_200']} of {int(valid.sum())} egos see more "
+              f"than 200 roads; wrapper "
+              f"{wrapper:.4f} ms per call (CUDA events), plain "
+              f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
+    return rec
+
+
 def timed_iteration(ppo, env, carry, fresh, what: str):
     """One PPO iteration that must not wait on the card, timed: (carry,
     samples, wall s, (rollout, gae, update) ms from CUDA events, the mean
@@ -1087,7 +1214,8 @@ def counts() -> dict:
             "K4": fe.fused_embed_pool_bwd.launches,
             "K3-bf16": fe.fused_embed_pool_fwd.bf16_launches,
             "K4-bf16": fe.fused_embed_pool_bwd.bf16_launches,
-            "K5": flat_obs_kernel.flat_obs_rows.launches}
+            "K5": flat_obs_kernel.flat_obs_rows.launches,
+            "K6": flat_obs_kernel.flat_obs_step.launches}
 
 
 def set_counts(c: dict) -> None:
@@ -1096,6 +1224,7 @@ def set_counts(c: dict) -> None:
     from gpudrive_lab_torch.networks import fused_embed as fe
 
     flat_obs_kernel.flat_obs_rows.launches = c["K5"]
+    flat_obs_kernel.flat_obs_step.launches = c["K6"]
     kernels.agent_road_hits_tiled.launches = c["K1"]
     kernels.agent_road_hits_dense.launches = c["K2"]
     fe.fused_embed_pool_fwd.launches = c["K3"]
@@ -3949,21 +4078,23 @@ def main() -> int:
     kernels.agent_road_hits_dense.launches = 0
     kernels.agent_road_hits_tiled.launches = 0
     fe.fused_embed_pool_fwd.launches = 0
+    flat_obs_kernel.flat_obs_step.launches = 0
     t0 = time.time()
     res = rollout(env, policy, STEPS, gen)
     torch.cuda.synchronize()
     wall = time.time() - t0
     k2["launches"] = kernels.agent_road_hits_dense.launches
     k3["launches"] = fe.fused_embed_pool_fwd.launches
+    k6_main = flat_obs_kernel.flat_obs_step.launches
     tiled_in_main = kernels.agent_road_hits_tiled.launches
     print(f"[rollout] {STEPS} steps x {W} worlds: {wall * 1e3 / STEPS:.3f} "
           f"ms/step wall; sim {res.sim_ms / STEPS:.3f} ms/step, policy "
           f"{res.policy_ms / STEPS:.3f} ms/step (device events)")
     print(f"[rollout] agent-steps/s {STEPS * n_agents / wall:.1f} "
           f"({n_agents} created agents); launches K2 {k2['launches']} "
-          f"K3 {k3['launches']} K1 {tiled_in_main}")
-    check(k2["launches"] > 0 and k3["launches"] > 0,
-          "the rollout did not launch K2 and K3")
+          f"K3 {k3['launches']} K1 {tiled_in_main} K6 {k6_main}")
+    check(k2["launches"] > 0 and k3["launches"] > 0 and k6_main > 0,
+          "the rollout did not launch K2, K3 and K6")
     check(tuple(res.actions.shape) == (STEPS, W, A), "actions shape")
     check(bool(((res.actions >= 0) & (res.actions < 91)).all()),
           "actions out of range")
@@ -4048,6 +4179,11 @@ def main() -> int:
     del tenv, tres
     # the large map: checks and wrapper times here, device times in phase 7
     lrec = large_map_phase(kernels, dev)
+    # K6 at the sim cells' shapes: checks, wrapper and plain times here,
+    # device times in phase 7
+    results["K6"] = uncounted(lambda: k6_check(root, dev))
+    results["K6"]["launches"] = k6_main
+    torch.cuda.empty_cache()
 
     # ---- phase 5: the training path, PPO over the 512 worlds -------------
     results["K4"], k4b_f32x_err, f32_train, results["K5"] = train_phase(
@@ -4155,10 +4291,27 @@ def main() -> int:
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     for key, rec in lrec.items():
         results[key]["large_map"] = rec
+    del lmap, tiles
+    from gpudrive_lab_torch.env.env_torch import ObsSpec
+
+    k6 = results["K6"]
+    for (label, scene, state, params), rec in zip(
+            k6_inputs(root, dev), (k6, k6["large_map"])):
+        fn = lambda: flat_obs_kernel.flat_obs_step(  # noqa: E731
+            scene, state, params, ObsSpec())
+        rec["select_ms"] = kernel_time_ms(fn, KERNEL_REPS,
+                                          "road_select_kernel")
+        rec["step_ms"] = kernel_time_ms(fn, KERNEL_REPS, "obs_step_kernel")
+        rec["ms"] = rec["select_ms"] + rec["step_ms"]
+        print(f"[K6] {label} {rec['shape']}: kernel {rec['ms']:.4f} ms "
+              f"(device: road_select {rec['select_ms']:.4f} + obs_step "
+              f"{rec['step_ms']:.4f}), wrapper {rec['wrapper_ms']:.4f} ms "
+              f"per call, plain {rec['plain_ms']:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
     line = {"kernels": []}
     for key in ("K1", "K2", "K3", "K4", "K3-bf16", "K3-bf16, 4,416 rows",
-                "K4-bf16", "K5"):
+                "K4-bf16", "K5", "K6"):
         r = results[key]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4169,7 +4322,7 @@ def main() -> int:
             "sensor_launches", "dataset_launches", "il_launches",
             "rnn_launches", "vbd_launches", "periphery_launches",
             "ingest_launches", "collision_launches", "multi_launches",
-            "entry_launches", "bar_readings")
+            "entry_launches", "bar_readings", "select_ms", "step_ms")
             if k in r})
     print(json.dumps(line))
     print(card)

@@ -1270,3 +1270,177 @@ def test_k5_launches_once_a_minibatch(k5_pool):
     train_fn(env.scene, carry, fresh, env.reward_weights)
     torch.cuda.synchronize()
     assert k5.flat_obs_rows.launches - before == 16
+
+
+# ---- K6: flat_observation of one state in two launches ---------------------
+
+def _k6_selection(scene, sel: str):
+    """Every ego selection K6 takes: every row, [W, 9] slots drawn per
+    world (padded egos among them), or flat pairs of every created agent
+    and 7 padded rows, shuffled across worlds."""
+    W, A = scene.agents.valid.shape
+    g = torch.Generator().manual_seed(2)
+    if sel == "dense":
+        return None
+    if sel == "world":
+        return torch.stack([torch.randperm(A, generator=g)[:9]
+                            for _ in range(W)]).cuda()
+    valid = scene.agents.valid
+    pairs = torch.cat([valid.nonzero(), (~valid).nonzero()[:7]])
+    pairs = pairs[torch.randperm(len(pairs), generator=g).cuda()]
+    return pairs[:, 0], pairs[:, 1]
+
+
+def _row_bits_equal(got, want) -> torch.Tensor:
+    """[N] whether each row (the last axis) of got and want is equal bit
+    for bit."""
+    as_int = torch.uint8 if got.dtype == torch.bool else torch.int32
+    return (got.flatten(0, -2).view(as_int)
+            == want.flatten(0, -2).view(as_int)).all(-1)
+
+
+def _k6_check(scene, state, params, ego, what: str) -> int:
+    """K6 through flat_observation, twice, into memory that held NaN and
+    out-of-range masks: one launch pair a call, both calls' bits equal,
+    nothing left unwritten.  Against flat_observation_plain on the card,
+    bit for bit: the partner mask everywhere, the rows and the road mask
+    wherever no two of the ego's 201 nearest roads share a d2 (there
+    torch.topk orders as it likes); and every row against the plain code
+    with its road rows at K6's rule's indices (road_order.py: nearest
+    first, ties to the lower index).  Returns the rows with such a tie."""
+    from unittest import mock
+
+    from gpudrive_lab_torch.core import observations as obsmod
+    from gpudrive_lab_torch.env import flat_obs_kernel as k6
+    from gpudrive_lab_torch.env.env_torch import (
+        ObsSpec,
+        flat_observation,
+        flat_observation_plain,
+    )
+
+    import road_order
+
+    W, A = scene.agents.valid.shape
+    n = len(k6.ego_pairs(ego, W, A, "cuda")[0])
+    # the caching allocator hands these blocks to K6's outputs next
+    junk = [torch.full((n, k6.OBS_DIM), float("nan"), device="cuda"),
+            torch.full((n, 127), 7, dtype=torch.int32, device="cuda"),
+            torch.full((n, 200), 7, dtype=torch.uint8, device="cuda")]
+    del junk
+    spec = ObsSpec()
+    before = k6.flat_obs_step.launches
+    got = flat_observation(scene, state, params, spec, None, ego)
+    again = flat_observation(scene, state, params, spec, None, ego)
+    torch.cuda.synchronize()
+    assert k6.flat_obs_step.launches == before + 2
+    obs, pmask, rmask = got
+    assert not bool(obs.isnan().any()), what
+    assert bool(((pmask >= 0) & (pmask <= 2)).all()), what
+    assert bool((rmask.view(torch.uint8) <= 1).all()), what
+    _bits_equal(obs, again[0], f"{what}: two launches")
+    assert torch.equal(pmask, again[1]) and torch.equal(rmask, again[2])
+    want = flat_observation_plain(scene, state, params, spec, None, ego)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype, what
+    assert torch.equal(pmask, want[1]), f"{what}: partner_mask"
+    idx, count, ties = road_order.nearest_first(scene, state, params, ego)
+    same = _row_bits_equal(obs, want[0]) & _row_bits_equal(rmask, want[2])
+    assert bool((same | ties).all()), (
+        f"{what}: {int((~same & ~ties).sum())} rows differ")
+    rows = road_order.road_rows_at(scene, state, params, ego, idx, count)
+    with mock.patch.object(obsmod, "agent_map_observations",
+                           lambda *args: rows):
+        rule = flat_observation_plain(scene, state, params, spec, None, ego)
+    _bits_equal(obs, rule[0], f"{what}: K6's road order")
+    assert torch.equal(rmask, rule[2]), f"{what}: K6's road mask"
+    n_ties = int(ties.sum())
+    print(f"[K6] {what}: {n} rows, {int((count == 200).sum())} at 200 "
+          f"roads, {n_ties} with two of the 201 nearest at one d2")
+    return n_ties
+
+
+@pytest.fixture(scope="module", params=["k_nearest_roadpoints", "linear"])
+def k6_pool(request):
+    """The 512 pool worlds on the card (agent bucket 32), roads selected
+    either way, after 5 random steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    from gpudrive_lab_torch.rollout import pool_scene_paths, slice_env
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = slice_env(pool_scene_paths(root), device="cuda",
+                    agent_bucket="auto", road_obs_algorithm=request.param,
+                    obs_radius=50.0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for _ in range(5):
+        env.step_dynamics(torch.randint(
+            0, env.action_space_n, env.scene.agents.valid.shape,
+            generator=g, device="cuda"))
+    return env
+
+
+@pytest.mark.parametrize("sel", ["dense", "world", "flat"])
+def test_k6_matches_flat_observation_on_the_pool(k6_pool, sel):
+    env = k6_pool
+    _k6_check(env.scene, env.state, env.params,
+              _k6_selection(env.scene, sel),
+              f"pool, {env.params.road_obs_algorithm.name}, {sel}")
+
+
+@pytest.fixture(scope="module")
+def k6_large_map():
+    """16 synthetic worlds of 10,240 roads (the large-map cell's agent
+    bucket of 32, 24 vehicles), the state moved off the generated one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    import dataclasses
+
+    from gpudrive_lab_torch.scene.large_map import LARGE_MAP, large_map_scene
+
+    scene, state, _ = large_map_scene(**dict(LARGE_MAP, W=16, A=32), seed=3,
+                                      device="cuda", grid=False)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    state = dataclasses.replace(
+        state, pos=state.pos + torch.randn(state.pos.shape, generator=g,
+                                           device="cuda"),
+        yaw=state.yaw + 0.3,
+        vel=torch.randn(state.vel.shape, generator=g, device="cuda"),
+        collided=(torch.rand(state.yaw.shape, generator=g, device="cuda")
+                  < 0.3).int())
+    return scene, state
+
+
+@pytest.mark.parametrize("sel", ["dense", "world", "flat"])
+@pytest.mark.parametrize("roads", ["KNEAREST", "LINEAR"])
+def test_k6_matches_flat_observation_on_a_large_map(k6_large_map, roads,
+                                                   sel):
+    """More than 200 roads in the radius of most egos."""
+    from gpudrive_lab_torch.core.types import Params, RoadObsAlgorithm
+
+    scene, state = k6_large_map
+    params = Params(road_obs_algorithm=RoadObsAlgorithm[roads],
+                    observation_radius=50.0)
+    d = scene.roads.pos[:, None, :, :2] - state.pos[:, :, None]
+    assert int(((d * d).sum(-1) <= 2500.0).sum(-1).max()) > 200
+    _k6_check(scene, state, params, _k6_selection(scene, sel),
+              f"large map, {roads}, {sel}")
+
+
+def test_k6_breaks_d2_ties_at_the_200th_place_by_index(k6_large_map):
+    """600 roads of world 0 stacked on one point 10 m from its first
+    vehicle: the bin of the 200th holds more than the kernel ranks in
+    place, so the radix select runs, and ties go to the lower index, in
+    the block's order too."""
+    import dataclasses
+
+    from gpudrive_lab_torch.core.types import Params, RoadObsAlgorithm
+
+    scene, state = k6_large_map
+    pos = scene.roads.pos.clone()
+    pos[0, 2000:2600, 0] = state.pos[0, 0, 0] + 6.0
+    pos[0, 2000:2600, 1] = state.pos[0, 0, 1] + 8.0
+    scene = dataclasses.replace(
+        scene, roads=dataclasses.replace(scene.roads, pos=pos))
+    params = Params(road_obs_algorithm=RoadObsAlgorithm.KNEAREST,
+                    observation_radius=50.0)
+    assert _k6_check(scene, state, params, None, "stacked roads") > 0

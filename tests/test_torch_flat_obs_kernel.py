@@ -1,27 +1,37 @@
-"""Kernel K5's wrapper (``env/flat_obs_kernel.py``) on the CPU.
+"""Kernels K5's and K6's wrappers (``env/flat_obs_kernel.py``) on the CPU.
 
 The CPU takes K5's plain version: one ``flat_observation`` per time step,
 written into one output.  These tests hold it to the stacked per-step
 observations for every ego selection and for the specs K5 leaves to it,
 pin the specs K5 covers and the update's choice between the two, and check
 that PPO's update gives the same bits through the wrapper as through the
-per-step loop it replaced.  The kernel itself runs in
-tests/test_torch_cuda.py and chip_smoke.py on the card.
+per-step loop it replaced.  For K6 they hold its plain versions to
+``flat_observation`` for both road selections and every ego selection,
+keep CPU tensors away from the kernel, pin the specs K6 covers and the
+dispatch inside ``flat_observation``, and hold ``agent_map_observations``
+to the road order K6 writes (``road_order.py``: nearest first, ties to the
+lower index), also where more than 200 roads lie in the radius.  The
+kernels themselves run in tests/test_torch_cuda.py and chip_smoke.py on
+the card.
 """
 
 import dataclasses
+import glob
 import os
 
 import pytest
 import torch
 
 from gpudrive_lab_torch import constants as C
+from gpudrive_lab_torch.core import observations as obsmod
 from gpudrive_lab_torch.core.types import Params, RoadObsAlgorithm, SimState
 from gpudrive_lab_torch.env import flat_obs_kernel as k5
 from gpudrive_lab_torch.env.env_torch import ObsSpec, flat_observation
 from gpudrive_lab_torch.ppo.ppo import PPOConfig
 from gpudrive_lab_torch.ppo.train import build_trainer
 from gpudrive_lab_torch.rollout import pool_scene_paths, slice_env
+
+import road_order
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_IDX = [2, 0, 3]  # out of order, as a minibatch draws them
@@ -198,3 +208,157 @@ def test_ego_pairs_follow_flat_observations_row_order():
     w, a = k5.ego_pairs(pair, W, A, "cpu")
     assert w.dtype == a.dtype == torch.int64
     assert w.tolist() == [2, 0] and a.tolist() == [1, 4]
+
+
+# ---- K6: flat_observation of one state in two launches --------------------
+
+ROADS = ["k_nearest_roadpoints", "linear"]
+KNEAREST = dataclasses.replace(LINEAR,
+                               road_obs_algorithm=RoadObsAlgorithm.KNEAREST)
+
+
+@pytest.fixture(scope="module", params=ROADS)
+def data_env(request):
+    """The three scenes of tests/data (1 to 7 roads, 1 to 4 agents in a
+    bucket of 16), roads selected either way, after two steps."""
+    e = slice_env(sorted(glob.glob(os.path.join(ROOT, "tests", "data",
+                                                "*.json"))),
+                  device="cpu", agent_bucket="auto",
+                  road_obs_algorithm=request.param)
+    g = torch.Generator().manual_seed(5)
+    for _ in range(2):
+        e.step_dynamics(torch.randint(0, e.action_space_n,
+                                      e.scene.agents.valid.shape,
+                                      generator=g))
+    return e
+
+
+def k6_selections(env):
+    """Every ego selection K6 takes: every row, [W, C] slots (padded egos
+    among them) and flat pairs across worlds."""
+    W, A = env.scene.agents.valid.shape
+    g = torch.Generator().manual_seed(1)
+    world = torch.stack([torch.randperm(A, generator=g)[:5]
+                         for _ in range(W)])
+    flat = (torch.tensor([2, 0, 2, 1, 0]), torch.tensor([3, 1, 0, 7, 0]))
+    return {"dense": None, "world": world, "flat": flat}
+
+
+@pytest.mark.parametrize("sel", ["dense", "world", "flat"])
+def test_step_plain_equals_flat_observation(data_env, sel):
+    env = data_env
+    ego = k6_selections(env)[sel]
+    got = k5.flat_obs_step(env.scene, env.state, env.params, ObsSpec(), ego)
+    want = flat_observation(env.scene, env.state, env.params, ObsSpec(),
+                            env.reward_weights, ego)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+    assert got[0].shape[-1] == k5.OBS_DIM
+
+
+def test_cpu_tensors_never_reach_k6(data_env, monkeypatch):
+    def refuse():
+        raise AssertionError("a CPU call reached the CUDA library")
+
+    monkeypatch.setattr(k5, "_lib", refuse)
+    before = k5.flat_obs_step.launches
+    for ego in k6_selections(data_env).values():
+        flat_observation(data_env.scene, data_env.state, data_env.params,
+                         ObsSpec(), data_env.reward_weights, ego)
+        k5.flat_obs_step(data_env.scene, data_env.state, data_env.params,
+                         ObsSpec(), ego)
+    assert k5.flat_obs_step.launches == before == 0
+
+
+@pytest.mark.parametrize("spec,params,ok", [
+    (ObsSpec(), KNEAREST, True),
+    (ObsSpec(), LINEAR, True),
+    (ObsSpec(norm_obs=False), KNEAREST, False),
+    (ObsSpec(reward_conditioned=True), KNEAREST, False),
+    (ObsSpec(ego_state=False), LINEAR, False),
+    (ObsSpec(partner_obs=False), KNEAREST, False),
+    (ObsSpec(road_map_obs=False), LINEAR, False),
+])
+def test_step_supports_the_classic_spec_either_road_selection(spec, params,
+                                                              ok):
+    assert k5.step_supports(spec, params) is ok
+    assert k5.supports(spec, params) is (ok and params is LINEAR)
+
+
+def test_k6_refuses_the_specs_it_leaves(data_env):
+    with pytest.raises(ValueError, match="K6"):
+        k5.flat_obs_step(data_env.scene, data_env.state, data_env.params,
+                         ObsSpec(norm_obs=False))
+
+
+@pytest.mark.parametrize("spec,split,takes_k6", [
+    (ObsSpec(), False, True),
+    (ObsSpec(), True, False),
+    (ObsSpec(norm_obs=False), False, False),
+    (ObsSpec(reward_conditioned=True), False, False),
+    (ObsSpec(partner_obs=False), False, False),
+])
+def test_flat_observation_takes_k6_on_cuda_tensors_only(data_env, spec,
+                                                        split, takes_k6,
+                                                        monkeypatch):
+    """The dispatch inside flat_observation, with CUDA faked by the
+    tensors' is_cuda: K6 for the specs it covers and not split, the plain
+    code for the rest; real CPU tensors always take the plain code."""
+    env = data_env
+    calls = []
+    monkeypatch.setattr(k5, "flat_obs_step",
+                        lambda *a: calls.append(a) or "k6")
+    args = (env.scene, env.state, env.params, spec, env.reward_weights)
+    assert flat_observation(*args, split=split) != "k6"
+    assert not calls
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    got = flat_observation(*args, split=split)
+    assert (got == "k6") is takes_k6
+    assert len(calls) == int(takes_k6)
+
+
+def _as_sets(x: torch.Tensor) -> torch.Tensor:
+    """Each [K, F] row block sorted by its rows, lexicographically."""
+    out = x.clone()
+    for i in range(x.shape[0]):
+        rows = x[i]
+        for f in reversed(range(rows.shape[1])):
+            rows = rows[torch.sort(rows[:, f], stable=True).indices]
+        out[i] = rows
+    return out
+
+
+@pytest.fixture(scope="module")
+def small_large_map():
+    """Two synthetic large-map worlds of 10,240 roads on the CPU, where
+    egos see more than 200 roads in the radius."""
+    from gpudrive_lab_torch.scene.large_map import LARGE_MAP, large_map_scene
+
+    scene, state, _ = large_map_scene(**dict(LARGE_MAP, W=2, A=32), seed=4,
+                                      device="cpu", grid=False)
+    return scene, state
+
+
+@pytest.mark.parametrize("sel", ["dense", "world", "flat"])
+@pytest.mark.parametrize("knn", [True, False])
+def test_agent_map_observations_orders_roads_as_k6(small_large_map, knn,
+                                                   sel):
+    """The plain road rows come in K6's order: KNEAREST nearest first,
+    LINEAR in index order, also past 200 roads in the radius; a row where
+    two of the 201 nearest share a d2 holds the same rows as a set."""
+    scene, state = small_large_map
+    params = KNEAREST if knn else LINEAR
+    ego = {"dense": None,
+           "world": torch.tensor([[3, 0, 30, 7], [1, 29, 2, 0]]),
+           "flat": (torch.tensor([1, 0, 1]), torch.tensor([0, 5, 31]))}[sel]
+    idx, count, ties = road_order.nearest_first(scene, state, params, ego)
+    assert int(count.max()) == C.MAX_AGENT_MAP_OBS  # more in the radius
+    got = road_order.road_rows_at(scene, state, params, ego, idx, count)
+    want = obsmod.agent_map_observations(scene, state, params, ego)
+    assert got.shape == want.shape
+    got, want = got.reshape(len(idx), -1, 9), want.reshape(len(idx), -1, 9)
+    same = (got.view(torch.int32) == want.view(torch.int32)).all(-1).all(-1)
+    assert bool((same | ties).all())
+    assert torch.equal(_as_sets(got[ties]), _as_sets(want[ties]))
