@@ -13,8 +13,9 @@ it (65,536, 35,328 and 4,416), drives the main paths (a 91-step late-fusion
 policy rollout over the 512 worlds of data/pool_v3 with 128 agent rows; 10
 steps of the padded 2048-road tiled path; PPO training over the same 512
 worlds through build_trainer, with a checkpoint round trip and one dense
-iteration, and K5, the update's observation recompute, at one minibatch's
-8 x 4,416 rows with LINEAR roads, bit for bit against its plain version;
+iteration, and K6 over the 8 stacked time steps of the update's observation
+recompute, one minibatch's 8 x 4,416 rows with LINEAR roads, bit for bit
+against its plain version;
 then PPO with the bf16 policy dtype, K3 and K4 in their bf16 compute
 mode, on the same worlds: phase 5b), holds K1 and K2 on a seeded
 synthetic large map (10,240 roads, scene/large_map.py; phase 4) and K6,
@@ -92,10 +93,11 @@ the outputs, and prints:
     call (CUDA events), its peak memory, its output's bytes / 3.35 TB/s as
     a floor and the samples, cells or pixels where card and CPU differ;
   * one JSON line with every kernel (K1, K2, K3, K4, K3 and K4 in
-    their bf16 compute mode, K5 and K6, their device times read in phase
+    their bf16 compute mode, K6 for the env step and K6 over the update's
+    stacked time steps ("K6, 35,328 rows"), their device times read in phase
     7: name, route, source, the TPU kernel it replaces, launches on the
     main path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms;
-    for K1, K2, K5 and K6 also wrapper_ms; for K1, K2 and K6 their
+    for K1, K2 and K6 also wrapper_ms; for K1, K2 and K6 their
     large-map reading; for K6 its two kernels' device ms (select_ms,
     step_ms); for K3 also its fp32-core bound and its time at
     each row count; for K2 and K3 also their launches in the sensor
@@ -112,6 +114,7 @@ It imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -136,6 +139,7 @@ STEPS = 91
 TILED_STEPS = 10
 TRAIN_ITERS = 3  # timed PPO iterations, after one warm-up
 KERNEL_REPS = 100  # launches per device-time reading of K1 and K2
+K6_ROWS = "K6, 35,328 rows"  # K6 over a train minibatch's 8 time steps
 PLAIN_WORLDS = 16  # large map: worlds held against the plain versions
 DENSE_WORLDS = 64  # worlds of the dense (uncompacted) training iteration
 SENSOR_STEPS = 3  # timed rollout steps with every sensor, after one warm-up
@@ -537,22 +541,23 @@ def k4_check(ppo, env, traj, gen) -> tuple[dict, float]:
     return k4, bf16_err
 
 
-def k5_check(ppo, env, traj) -> dict:
-    """K5 at the update's minibatch shape: the rows of rollout_len /
-    num_minibatches time steps of the flat compacted selection, the roads
-    selected LINEAR as the benchmark's train cell selects them, against
-    its plain version (bitwise, two launches equal); its time from CUDA
-    events beside its bound (the output written once) and the plain
-    version's.  Returns K5's record, with a function under "args" that
-    gives the arguments of one launch for its device time in phase 7: the
-    time steps K5 reads wait on the host until then, so that the phases in
-    between hold no more on the card than they would without K5."""
+def k6_rows_check(ppo, env, traj) -> dict:
+    """K6 over the stacked time steps of the update's minibatch: the rows
+    of rollout_len / num_minibatches time steps of the flat compacted
+    selection, the roads selected LINEAR as the benchmark's train cell
+    selects them, against the plain version (bitwise, two calls equal);
+    its time from CUDA events beside its bound (the output written once)
+    and the plain version's.  Returns its record, with a function under
+    "args" that gives the arguments of one call for its device time in
+    phase 7: the time steps it reads wait on the host until then, so that
+    the phases in between hold no more on the card than they would
+    without this check."""
     import dataclasses
 
     import torch
 
     from gpudrive_lab_torch.core.types import RoadObsAlgorithm, SimState
-    from gpudrive_lab_torch.env import flat_obs_kernel as k5
+    from gpudrive_lab_torch.env import flat_obs_kernel as k6
 
     cfg = ppo.config
     params = dataclasses.replace(env.params,
@@ -561,25 +566,25 @@ def k5_check(ppo, env, traj) -> dict:
     slots = ppo.ctrl_slots(env.scene)
     args = (env.scene, traj.env_state, t_idx, slots, params, env.spec,
             env.reward_weights)
-    got = twice(lambda: k5.flat_obs_rows(*args), "K5")
-    want = k5.flat_obs_rows_plain(*args)
+    got = twice(lambda: k6.flat_obs_rows(*args), "K6 rows")
+    want = k6.flat_obs_rows_plain(*args)
     torch.cuda.synchronize()
     n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    check(n_diff == 0, f"K5 differs from its plain version in {n_diff} "
+    check(n_diff == 0, f"K6 rows differ from the plain version in {n_diff} "
           f"of {got.numel()} floats")
     rows = got.shape[0]
     del got, want
-    wrapper = time_ms(lambda: k5.flat_obs_rows(*args), 20)
-    plain = time_ms(lambda: k5.flat_obs_rows_plain(*args), 3, warmup=1)
-    bms, by = bound(4 * rows * k5.OBS_DIM, 0)
-    rec = dict(name="K5 flat_obs_rows", route="cuda",
+    wrapper = time_ms(lambda: k6.flat_obs_rows(*args), 20)
+    plain = time_ms(lambda: k6.flat_obs_rows_plain(*args), 3, warmup=1)
+    bms, by = bound(4 * rows * k6.OBS_DIM, 0)
+    rec = dict(name="K6 flat_obs_rows", route="cuda",
                source="gpudrive_lab_torch/csrc/flat_obs.cu",
                replaces="none: XLA fuses the JAX recompute "
                         "(gpudrive_lab_tpu/ppo/ppo.py, env_jax.py:"
                         "flat_observation)",
                library_ms=None, ms=0.0, wrapper_ms=wrapper, plain_ms=plain,
                bound_ms=bms, bound_by=by, max_abs_err=0.0,
-               parity="bitwise equal to plain; two launches bitwise equal",
+               parity="bitwise equal to plain; two calls bitwise equal",
                shape=f"[{rows},3368] ({len(t_idx)} steps x "
                      f"{rows // len(t_idx)} flat rows, LINEAR roads)")
     dev = traj.env_state.pos.device
@@ -590,7 +595,7 @@ def k5_check(ppo, env, traj) -> dict:
         env.scene, SimState(*(x.to(dev) for x in held)), t_idx,
         tuple(c.to(dev) for c in slots), params, env.spec,
         env.reward_weights)
-    print(f"[K5] {rec['shape']}: bitwise equal to plain, two launches "
+    print(f"[K6 rows] {rec['shape']}: bitwise equal to plain, two calls "
           f"equal; wrapper {wrapper:.4f} ms per call (CUDA events), plain "
           f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
     return rec
@@ -753,12 +758,13 @@ def timed_iteration(ppo, env, carry, fresh, what: str):
 
 def train_phase(env, scenes, gen) -> tuple[dict, float, dict, dict]:
     """PPO on the slice's 512 worlds through build_trainer: one warm-up
-    iteration, K4 and K5 against their plain versions, TRAIN_ITERS timed
+    iteration, K4 and K6 over stacked times against their plain versions,
+    TRAIN_ITERS timed
     iterations with the launch counts read around them, one iteration
     under torch.profiler, a checkpoint round trip, and one dense iteration
     on the first DENSE_WORLDS worlds.  Returns K4's kernel record,
     K4-bf16's error on float32 x (k4_check), the timed iterations' summary
-    and K5's record (k5_check)."""
+    and the record of K6 over stacked times (k6_rows_check)."""
     import dataclasses
     import tempfile
 
@@ -795,14 +801,14 @@ def train_phase(env, scenes, gen) -> tuple[dict, float, dict, dict]:
     carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
     global_step = float(ppo.update(env.scene, carry, traj, rw)["samples"])
     k4, k4_bf16_f32x_err = k4_check(ppo, env, traj, gen)
-    k5 = uncounted(lambda: k5_check(ppo, env, traj))
+    k6_rows = uncounted(lambda: k6_rows_check(ppo, env, traj))
     del traj
 
     before = [p.detach().clone() for p in ppo.policy.parameters()]
     torch.cuda.synchronize()
     for f in (fe.fused_embed_pool_fwd, fe.fused_embed_pool_bwd):
         f.launches = f.bf16_launches = 0
-    flat_obs_kernel.flat_obs_rows.launches = 0
+    flat_obs_kernel.flat_obs_step.launches = 0
     rates, splits = [], []
     for it in range(TRAIN_ITERS):
         n0 = fe.fused_embed_pool_bwd.launches
@@ -820,11 +826,14 @@ def train_phase(env, scenes, gen) -> tuple[dict, float, dict, dict]:
               f"samples/s {samples / wall:.1f}; K4 launches {n4}; "
               + ", ".join(f"{k} {v:.5f}" for k, v in loss.items()))
     k4["launches"] = fe.fused_embed_pool_bwd.launches
-    k5["launches"] = flat_obs_kernel.flat_obs_rows.launches
-    n5 = (TRAIN_ITERS * cfg.update_epochs * cfg.num_minibatches
-          if flat_obs_kernel.supports(env.spec, env.params) else 0)
-    check(k5["launches"] == n5, f"K5 launched {k5['launches']} times in the "
-          f"timed iterations, expected {n5}")
+    # a K6 launch pair per rollout step, one for the bootstrap value
+    # (prepare) and one per minibatch of the update
+    k6_rows["launches"] = flat_obs_kernel.flat_obs_step.launches
+    n6 = (TRAIN_ITERS * (cfg.rollout_len + 1
+                         + cfg.update_epochs * cfg.num_minibatches)
+          if flat_obs_kernel.step_supports(env.spec, env.params) else 0)
+    check(k6_rows["launches"] == n6, f"K6 launched {k6_rows['launches']} "
+          f"pairs in the timed iterations, expected {n6}")
     check(fe.fused_embed_pool_fwd.bf16_launches == 0
           and fe.fused_embed_pool_bwd.bf16_launches == 0,
           "the float32 iterations launched the bf16 mode")
@@ -901,7 +910,7 @@ def train_phase(env, scenes, gen) -> tuple[dict, float, dict, dict]:
           f"iteration of this trainer), {dm['samples']:.0f} samples, "
           f"pg_loss {dm['pg_loss']:.5f}, v_loss {dm['v_loss']:.5f}; "
           f"K4 launches {n4}")
-    return k4, k4_bf16_f32x_err, summary, k5
+    return k4, k4_bf16_f32x_err, summary, k6_rows
 
 
 def bf16_train_phase(env, gen, f32: dict) -> tuple[dict, dict]:
@@ -1214,7 +1223,6 @@ def counts() -> dict:
             "K4": fe.fused_embed_pool_bwd.launches,
             "K3-bf16": fe.fused_embed_pool_fwd.bf16_launches,
             "K4-bf16": fe.fused_embed_pool_bwd.bf16_launches,
-            "K5": flat_obs_kernel.flat_obs_rows.launches,
             "K6": flat_obs_kernel.flat_obs_step.launches}
 
 
@@ -1223,7 +1231,6 @@ def set_counts(c: dict) -> None:
     from gpudrive_lab_torch.env import flat_obs_kernel
     from gpudrive_lab_torch.networks import fused_embed as fe
 
-    flat_obs_kernel.flat_obs_rows.launches = c["K5"]
     flat_obs_kernel.flat_obs_step.launches = c["K6"]
     kernels.agent_road_hits_tiled.launches = c["K1"]
     kernels.agent_road_hits_dense.launches = c["K2"]
@@ -4186,7 +4193,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 5: the training path, PPO over the 512 worlds -------------
-    results["K4"], k4b_f32x_err, f32_train, results["K5"] = train_phase(
+    results["K4"], k4b_f32x_err, f32_train, results[K6_ROWS] = train_phase(
         env, scenes, gen)
 
     # ---- phase 5b: PPO with the bf16 policy dtype (K3/K4 bf16 mode) -------
@@ -4282,9 +4289,7 @@ def main() -> int:
             ("[large map] K2", lrec["K2"], kernels.agent_road_hits_dense,
              (lmap.agents, lmap.roads_t), "ar_dense_kernel"),
             ("[large map] K1", lrec["K1"], kernels.agent_road_hits_tiled,
-             (lmap.agents_s, tiles, lmap.mask), "ar_tiled_kernel"),
-            ("[K5]", results["K5"], flat_obs_kernel.flat_obs_rows,
-             results["K5"].pop("args")(), "flat_obs_kernel")):
+             (lmap.agents_s, tiles, lmap.mask), "ar_tiled_kernel")):
         rec["ms"] = kernel_time_ms(lambda: fn(*args), KERNEL_REPS, kernel)
         print(f"{what} {rec['shape']}: kernel {rec['ms']:.4f} ms (device), "
               f"wrapper {rec['wrapper_ms']:.4f} ms per call, bound "
@@ -4295,10 +4300,13 @@ def main() -> int:
     from gpudrive_lab_torch.env.env_torch import ObsSpec
 
     k6 = results["K6"]
-    for (label, scene, state, params), rec in zip(
-            k6_inputs(root, dev), (k6, k6["large_map"])):
-        fn = lambda: flat_obs_kernel.flat_obs_step(  # noqa: E731
-            scene, state, params, ObsSpec())
+    calls = [(label, rec, functools.partial(flat_obs_kernel.flat_obs_step,
+                                            scene, state, params, ObsSpec()))
+             for (label, scene, state, params), rec in zip(
+                 k6_inputs(root, dev), (k6, k6["large_map"]))]
+    calls.append(("update rows", results[K6_ROWS], functools.partial(
+        flat_obs_kernel.flat_obs_rows, *results[K6_ROWS].pop("args")())))
+    for label, rec, fn in calls:
         rec["select_ms"] = kernel_time_ms(fn, KERNEL_REPS,
                                           "road_select_kernel")
         rec["step_ms"] = kernel_time_ms(fn, KERNEL_REPS, "obs_step_kernel")
@@ -4311,7 +4319,7 @@ def main() -> int:
 
     line = {"kernels": []}
     for key in ("K1", "K2", "K3", "K4", "K3-bf16", "K3-bf16, 4,416 rows",
-                "K4-bf16", "K5", "K6"):
+                "K4-bf16", "K6", K6_ROWS):
         r = results[key]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -117,8 +117,8 @@ def bench_step(scene, fresh, table, weights, state, idx, acc, params,
             rgb, depth = batch_render(
                 scene, state, CameraConfig(height=camera, width=camera))
             acc = acc + depth.sum() + rgb[..., 0].sum(dtype=torch.float32)
-        world_done = ((state.done != 0) | ~scene.agents.valid).all(dim=1)
-        return stepmod.select_worlds(world_done, fresh, state), acc
+        return (stepmod.select_worlds(stepmod.world_done(scene, state), fresh,
+                                      state), acc)
 
 
 def _sync(device: torch.device) -> None:

@@ -245,6 +245,12 @@ def init_state(scene: Scene) -> SimState:
     )
 
 
+def world_done(scene: Scene, state: SimState) -> torch.Tensor:
+    """[W] bool: every created agent of the world is done (the worlds an
+    auto-reset replaces)."""
+    return ((state.done != 0) | ~scene.agents.valid).all(dim=1)
+
+
 def select_worlds(mask: torch.Tensor, a: SimState, b: SimState) -> SimState:
     """Per-world select: world w of the result is ``a``'s where mask[w],
     else ``b``'s (mask [W] bool)."""

@@ -1,4 +1,5 @@
-// K5 and K6: the flat policy observation written straight from the state.
+// K6: the flat policy observation written straight from the state, for
+// the env step and for PPO's remat_obs recompute.
 //
 // Replace no Pallas kernel.  The JAX package computes the observation
 // with jnp code and leaves the fusion to XLA.  Eager PyTorch has no such
@@ -6,16 +7,16 @@
 // and holds ~56 KB a row of intermediates (the [.., R] distance lattice,
 // the top-K buffers, the gathered road columns, the torch.cat copies).
 //
-// K5 (flat_obs_kernel, entry flat_obs_rows): PPO's remat_obs recompute.
-// It writes the rows of all the time steps of a minibatch in one launch,
-// roads selected LINEAR only.
+// Two launches (entries road_select and obs_step) over states stacked
+// along a leading [T], at up to MAX_TIMES time indices t[i] per launch
+// pair: the rows of time index i go to out[i * N + n], n the ego's row in
+// flat_observation's order.  The env step's one state is T = 1, t = [0]
+// (flat_observation on CUDA, with the partner and road masks); the update
+// recomputes all the time steps of a minibatch in one pair (no masks: null
+// mask pointers write none).  Roads selected KNEAREST or LINEAR.
 //
-// K6 (road_select_kernel then obs_step_kernel, entries road_select and
-// obs_step): flat_observation of one state on CUDA, roads selected
-// KNEAREST or LINEAR, with the partner and road masks, in two launches.
-//
-// Output row [3368] float32, equal bit for bit (K6's road block but where
-// two roads of an ego lie at the same d2, see K6 below) to
+// Output row [3368] float32, equal bit for bit (the road block but where
+// two roads of an ego lie at the same d2, see road_select_kernel below) to
 // flat_observation_plain as CUDA PyTorch computes it for the classic spec
 // with norm_obs:
 //   ego      6 floats: speed, length, width, rel goal x, y, collided
@@ -35,63 +36,58 @@
 // float reciprocal, so the wrapper passes reciprocals computed as PyTorch
 // computes them (env/flat_obs_kernel.py, _norm).
 //
-// Inputs (contiguous): the state's pos [.., W, A, 2], yaw [.., W, A], vel
-// [.., W, A, 2], collided [.., W, A] int32 (K5: stacked along a leading
-// [T]); the scene's agents size [W, A, 3], goal [W, A, 2], valid [W, A]
-// bool, num_agents [W] int32 (K6 also aid [W, A] int32, static [W, A]
-// bool); its roads pos [W, R, 3], yaw [W, R], scale [W, R, 3], etype
-// [W, R] int32, valid [W, R] bool (K6 also rid [W, R] int32); the egos.
-// Constants come by value: no copy to the device, no synchronisation.
+// Inputs (contiguous): the states' pos [T, W, A, 2], yaw [T, W, A], vel
+// [T, W, A, 2], collided [T, W, A] int32; the scene's agents size [W, A,
+// 3], goal [W, A, 2], valid [W, A] bool, aid [W, A] int32, static [W, A]
+// bool, num_agents [W] int32; its roads pos [W, R, 3], yaw [W, R], scale
+// [W, R, 3], etype [W, R] int32, rid [W, R] int32, valid [W, R] bool; the
+// egos.  Constants and time indices come by value: no copy to the device,
+// no synchronisation.
 //
-// K5.  Bound: bytes.  Each row is 13,472 bytes written once; the states and
-// the scene it reads are shared by the egos of a world and by the time
-// steps and stay in L2.  At the update's minibatch (8 x 4,416 rows) that is
-// 476 MB, 0.142 ms at 3.35 TB/s.  Design: one warp per row.  The warp
-// builds the ego and partner blocks (lanes over partner slots) in shared
-// memory and writes them as float4, then scans the world's roads 32 at a
-// time, placing each in-radius road at its slot by a ballot prefix count,
-// stops at 200, fills the rest, and writes the road block as float4.
-//
-// K6.  Bound: bytes, the rows and masks written once (14,180 bytes a row:
-// 232 and 116 MB at the sim cells' 16,384 and 8,192 rows, 0.069 and 0.035
-// ms at 3.35 TB/s) and the indices written and read once (8 bytes a
-// selected road, at most 200 an ego).  What the plain code spends on the
-// [N, R] lattice, its sort and the copies, K6 keeps in registers and
-// shared memory.
+// Bound: bytes, the rows (and masks) written once (13,472 bytes a row,
+// 14,180 with the masks: 232 and 116 MB at the sim cells' 16,384 and 8,192
+// rows, 476 MB at the update's minibatch of 8 x 4,416 rows; 0.069, 0.035
+// and 0.142 ms at 3.35 TB/s) and the indices written and read once (8
+// bytes a selected road, at most 200 an ego).  The states and the scene it
+// reads are shared by the egos of a world and stay in L2.  What the plain
+// code spends on the [N, R] lattice, its sort and the copies, K6 keeps in
+// registers and shared memory.
 //   road_select_kernel: the indices of each ego's roads, nearest first
 //   with KNEAREST, and their count, written as int32 into the ego's own
 //   output row (the count over its first float, the indices over its road
 //   block), which obs_step_kernel reads before it writes the row: K6 needs
 //   no memory beyond its outputs.
-//   One block per world where the egos of a world are consecutive rows
-//   (every agent row, or [W, C] slots) and the world's road xy and valid
-//   flags fit in shared memory (10,240 roads: 92 KB), staged there once;
-//   else one warp per row reading the roads from global memory.  One warp
-//   per ego computes d2 with the plain expression's rounding (the radius
-//   filter and the selection depend on those bits).  LINEAR: the first 200
-//   in the radius in index order, as K5.  KNEAREST: the plain code takes
-//   the 200 least d2 (invalid roads +inf) and then keeps those in the
-//   radius, so when at most 200 roads lie in the radius it keeps exactly
-//   those, which the first pass collects in index order.  When more do, it
-//   keeps the 200 least d2 among them.  The first pass also counts them in
-//   256 bins of d2 over [0, radius^2] (the bin a monotone function of d2,
-//   so every road of a lower bin is nearer than every road of a higher
-//   one); a warp scan finds the bin that holds the 200th; a second pass
-//   takes the roads of the lower bins and buffers those of that bin, and
-//   a rank count over the buffer takes the nearest of them.  A bin of more
-//   than BIN_CAP roads takes a radix select over d2's bits instead (four
-//   passes of 8 bits).  Then a bitonic sort of the selected roads' (d2,
-//   index) keys in registers (32 to 256 slots, the fewest that hold them)
-//   puts them in the plain code's order, nearest first (torch.topk's
-//   sorted values).  Ties of d2 go to the lower
-//   road index; torch.topk breaks them in no stated order, so where two of
-//   an ego's roads lie at exactly the same d2 its road rows may come in
+//   One block per world and time index where the egos of a world are
+//   consecutive rows (every agent row, or [W, C] slots) and the world's
+//   road xy and valid flags fit in shared memory (10,240 roads: 92 KB),
+//   staged there; else one warp per row reading the roads from global
+//   memory.  One warp per ego computes d2 with the plain expression's
+//   rounding (the radius filter and the selection depend on those bits).
+//   LINEAR: the first 200 in the radius in index order.  KNEAREST: the
+//   plain code takes the 200 least d2 (invalid roads +inf) and then keeps
+//   those in the radius, so when at most 200 roads lie in the radius it
+//   keeps exactly those, which the first pass collects in index order.
+//   When more do, it keeps the 200 least d2 among them.  The first pass
+//   also counts them in 256 bins of d2 over [0, radius^2] (the bin a
+//   monotone function of d2, so every road of a lower bin is nearer than
+//   every road of a higher one); a warp scan finds the bin that holds the
+//   200th; a second pass takes the roads of the lower bins and buffers
+//   those of that bin, and a rank count over the buffer takes the nearest
+//   of them.  A bin of more than BIN_CAP roads takes a radix select over
+//   d2's bits instead (four passes of 8 bits).  Then a bitonic sort of the
+//   selected roads' (d2, index) keys in registers (32 to 256 slots, the
+//   fewest that hold them) puts them in the plain code's order, nearest
+//   first (torch.topk's sorted values).  Ties of d2 go to the lower road
+//   index; torch.topk breaks them in no stated order, so where two of an
+//   ego's roads lie at exactly the same d2 its road rows may come in
 //   another order, or, at the 200th place, hold another road of that d2.
-//   obs_step_kernel: K5's row for one state, the roads read at the
-//   selected indices, and the masks: partner_mask [N, 127] int32 (0
-//   partner, 1 static, 2 nonexistent or out of the radius) and road_mask
-//   [N, 200] bool (an id of -1: every filler of a padded ego and of LINEAR,
-//   none of KNEAREST's all-zero fillers).  One warp per row, as K5.
+//   obs_step_kernel: one warp per row.  The warp builds the ego and
+//   partner blocks (lanes over partner slots) in shared memory and writes
+//   them as float4, then the roads at the selected indices and the
+//   fillers, written as float4; where given, the masks: partner_mask [..,
+//   127] int32 (0 partner, 1 static, 2 nonexistent or out of the radius)
+//   and road_mask [.., 200] bool (an id of -1: every filler of a padded
+//   ego and of LINEAR, none of KNEAREST's all-zero fillers).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // (gpudrive_lab_torch/cuda_build.py).  C interface, launched on the caller's
@@ -104,7 +100,7 @@
 // A named namespace: the profiler's name of the kernel then carries no
 // "(anonymous namespace)::" inside its parameter list, where a reader that
 // finds kernels by name would take the wrong part for the name.
-namespace k5 {
+namespace k6 {
 
 constexpr int OBS_DIM = 3368;
 constexpr int EGO_F = 6;
@@ -116,14 +112,15 @@ constexpr int ROAD_TYPES = 7;
 constexpr int HEAD = EGO_F + PARTNERS * PARTNER_F;  // 768 floats
 constexpr int ROAD_BLOCK = ROADS_K * ROAD_F;        // 2600 floats
 constexpr int WARPS = 4;                            // rows per block
-constexpr int MAX_TIMES = 32;                       // time steps per launch
+constexpr int MAX_TIMES = 32;                       // time indices a launch
 
 static_assert(HEAD % 4 == 0 && ROAD_BLOCK % 4 == 0 && OBS_DIM % 4 == 0,
               "float4 stores need 16-byte aligned blocks");
 
-// The time indices of one launch.
+// The time indices of one launch, blockIdx.y indexing them.  The kernels
+// take it __grid_constant__: indexed in place, where a by-value copy
+// indexed at run time would go to every thread's stack.
 struct Times {
-  int n;
   int t[MAX_TIMES];
 };
 
@@ -226,8 +223,8 @@ __device__ __forceinline__ void flush(const float* buf, float* dst, int n4,
   for (int q = lane; q < n4; q += 32) d[q] = s[q];
 }
 
-// One ego of one state: st indexes the state's [W, A] rows, sa the
-// scene's (equal for one state).
+// One ego at one time: st indexes the states' [T, W, A] rows at that
+// time, sa the scene's [W, A] rows.
 struct Ego {
   bool valid;
   float x, y, yaw, c, s;
@@ -301,84 +298,6 @@ __device__ __forceinline__ void put_head(
     if (pmask != nullptr) pmask[k] = m;
   }
 }
-
-__global__ void __launch_bounds__(WARPS * 32)
-flat_obs_kernel(float* __restrict__ out, const float* __restrict__ pos,
-                const float* __restrict__ yaw, const float* __restrict__ vel,
-                const int* __restrict__ collided,
-                const float* __restrict__ size, const float* __restrict__ goal,
-                const unsigned char* __restrict__ valid,
-                const int* __restrict__ num_agents,
-                const float* __restrict__ rpos, const float* __restrict__ ryaw,
-                const float* __restrict__ rscale,
-                const int* __restrict__ retype,
-                const unsigned char* __restrict__ rvalid,
-                const long long* __restrict__ w_idx,
-                const long long* __restrict__ a_idx, int N, int W, int A,
-                int R, Times times, Norm nm) {
-  __shared__ __align__(16) float stage[WARPS][ROAD_BLOCK];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * WARPS + warp;
-  if (row >= (long long)times.n * N) return;  // the whole warp
-  float* buf = stage[warp];
-  const int i = (int)(row / N);
-  const int n = (int)(row - (long long)i * N);
-  const int w = (int)w_idx[n];
-  Ego e;
-  e.a = (int)a_idx[n];
-  e.sa = (size_t)w * A;                         // scene agents
-  e.st = ((size_t)times.t[i] * W + w) * A;      // states at t
-  e.valid = valid[e.sa + e.a] != 0;
-  e.x = pos[2 * (e.st + e.a)];
-  e.y = pos[2 * (e.st + e.a) + 1];
-  e.yaw = yaw[e.st + e.a];
-  e.c = cosf(e.yaw);
-  e.s = sinf(e.yaw);
-  e.slots = min(A - 1, num_agents[w] - 1);  // existing slots
-  float* dst = out + row * OBS_DIM;
-
-  put_head(buf, nullptr, e, lane, pos, yaw, vel, collided, size, goal,
-           nullptr, nullptr, nm);
-  __syncwarp();
-  flush(buf, dst, HEAD / 4, lane);
-  __syncwarp();
-
-  // ---- roads: the first ROADS_K in-radius roads in index order -------------
-  int count = 0;
-  if (e.valid) {
-    const size_t sr = (size_t)w * R;
-    for (int base = 0; base < R && count < ROADS_K; base += 32) {
-      const int r = base + lane;
-      bool within = false;
-      if (r < R && rvalid[sr + r]) {
-        const float dx = sub(rpos[3 * (sr + r)], e.x);
-        const float dy = sub(rpos[3 * (sr + r) + 1], e.y);
-        within = add(mul(dx, dx), mul(dy, dy)) <= nm.radius2;
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, within);
-      const int slot = count + __popc(m & ((1u << lane) - 1u));
-      if (within && slot < ROADS_K)
-        put_road_at(buf + ROAD_F * slot, sr + r, e.x, e.y, e.c, e.s, e.yaw,
-                    rpos, ryaw, rscale, retype, nm);
-      count += __popc(m);
-    }
-  }
-  for (int slot = min(count, ROADS_K) + lane; slot < ROADS_K; slot += 32)
-    put_road(buf + ROAD_F * slot, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0, nm);
-  __syncwarp();
-  flush(buf, dst + HEAD, ROAD_BLOCK / 4, lane);
-}
-
-}  // namespace k5
-
-namespace k6 {
-
-using k5::add;
-using k5::mul;
-using k5::sub;
-using k5::Norm;
-using k5::ROADS_K;
 
 constexpr int SEL_WARPS = 16;  // egos in flight per block of road_select
 constexpr int BINS = 256;      // d2 bins, and the radix select's digits
@@ -671,12 +590,14 @@ __device__ void select_roads(const Roads& rd, int R, float ex, float ey,
 // Where row's selection goes in the output rows, seen as int32: its count
 // over the row's first float, its indices over the road block.
 __device__ __forceinline__ int* sel_count(int* rows, long long row) {
-  return rows + row * k5::OBS_DIM;
+  return rows + row * OBS_DIM;
 }
 __device__ __forceinline__ int* sel_idx(int* rows, long long row) {
-  return rows + row * k5::OBS_DIM + k5::HEAD;
+  return rows + row * OBS_DIM + HEAD;
 }
 
+// Both kernels: blockIdx.y the time index i, output rows i * N + n.
+//
 // STAGED: one block per world (the egos of world blockIdx.x are the rows
 // [w * per, (w + 1) * per)), its roads in shared memory.  Else one warp
 // per row.  Dynamic shared memory: SEL_WARPS * SCRATCH bytes, then (STAGED)
@@ -687,11 +608,15 @@ road_select_kernel(int* rows, const float* __restrict__ pos,
                    const unsigned char* __restrict__ valid,
                    const float* __restrict__ rpos,
                    const unsigned char* __restrict__ rvalid, Egos egos, int N,
-                   int A, int R, int knn, Norm nm, float scale) {
+                   int W, int A, int R, int knn,
+                   const __grid_constant__ Times times, Norm nm,
+                   float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int* scratch = reinterpret_cast<int*>(smem) + warp * BINS;
+  const long long first = (long long)blockIdx.y * N;  // the time's rows
+  const size_t st = (size_t)times.t[blockIdx.y] * W * A;
   if (STAGED) {
     const int w = blockIdx.x;
     float2* xy = reinterpret_cast<float2*>(smem + SEL_WARPS * SCRATCH);
@@ -704,33 +629,36 @@ road_select_kernel(int* rows, const float* __restrict__ pos,
     __syncthreads();
     const SharedRoads rd{xy, v};
     for (int e = warp; e < egos.per; e += SEL_WARPS) {
-      const long long row = (long long)w * egos.per + e;
-      const int a = egos.mode == 0 ? e : (int)egos.a[row];
+      const long long n = (long long)w * egos.per + e;
+      const int a = egos.mode == 0 ? e : (int)egos.a[n];
       const size_t s = (size_t)w * A + a;
       if (valid[s] == 0) {
-        if (lane == 0) *sel_count(rows, row) = 0;
+        if (lane == 0) *sel_count(rows, first + n) = 0;
         continue;
       }
-      select_roads(rd, R, pos[2 * s], pos[2 * s + 1], knn != 0, nm, scale,
-                   sel_idx(rows, row), sel_count(rows, row), scratch, lane);
+      select_roads(rd, R, pos[2 * (st + s)], pos[2 * (st + s) + 1], knn != 0,
+                   nm, scale, sel_idx(rows, first + n),
+                   sel_count(rows, first + n), scratch, lane);
     }
   } else {
-    const long long row = (long long)blockIdx.x * SEL_WARPS + warp;
-    if (row >= N) return;  // the whole warp
+    const long long n = (long long)blockIdx.x * SEL_WARPS + warp;
+    if (n >= N) return;  // the whole warp
     int w, a;
-    ego_of(egos, row, w, a);
+    ego_of(egos, n, w, a);
     const size_t s = (size_t)w * A + a;
     if (valid[s] == 0) {
-      if (lane == 0) *sel_count(rows, row) = 0;
+      if (lane == 0) *sel_count(rows, first + n) = 0;
       return;
     }
     const GlobalRoads rd{rpos + 3 * (size_t)w * R, rvalid + (size_t)w * R};
-    select_roads(rd, R, pos[2 * s], pos[2 * s + 1], knn != 0, nm, scale,
-                 sel_idx(rows, row), sel_count(rows, row), scratch, lane);
+    select_roads(rd, R, pos[2 * (st + s)], pos[2 * (st + s) + 1], knn != 0,
+                 nm, scale, sel_idx(rows, first + n),
+                 sel_count(rows, first + n), scratch, lane);
   }
 }
 
-__global__ void __launch_bounds__(k5::WARPS * 32)
+// pmask and rmask may be null: then no masks are written.
+__global__ void __launch_bounds__(WARPS * 32)
 obs_step_kernel(float* out, int* __restrict__ pmask,
                 unsigned char* __restrict__ rmask,
                 const float* __restrict__ pos, const float* __restrict__ yaw,
@@ -744,18 +672,20 @@ obs_step_kernel(float* out, int* __restrict__ pmask,
                 const float* __restrict__ rpos, const float* __restrict__ ryaw,
                 const float* __restrict__ rscale,
                 const int* __restrict__ retype, const int* __restrict__ rid,
-                Egos egos, int N, int A, int R, int knn, Norm nm) {
-  using namespace k5;
+                Egos egos, int N, int W, int A, int R, int knn,
+                const __grid_constant__ Times times, Norm nm) {
   __shared__ __align__(16) float stage[WARPS][ROAD_BLOCK];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * WARPS + warp;
-  if (row >= N) return;  // the whole warp
+  const long long n = (long long)blockIdx.x * WARPS + warp;
+  if (n >= N) return;  // the whole warp
+  const long long row = (long long)blockIdx.y * N + n;
   float* buf = stage[warp];
   int w;
   Ego e;
-  ego_of(egos, row, w, e.a);
-  e.sa = e.st = (size_t)w * A;
+  ego_of(egos, n, w, e.a);
+  e.sa = (size_t)w * A;
+  e.st = ((size_t)times.t[blockIdx.y] * W + w) * A;
   e.valid = valid[e.sa + e.a] != 0;
   e.x = pos[2 * (e.st + e.a)];
   e.y = pos[2 * (e.st + e.a) + 1];
@@ -766,11 +696,11 @@ obs_step_kernel(float* out, int* __restrict__ pmask,
   float* dst = out + row * OBS_DIM;
   // road_select_kernel's count and indices, read before the row is written
   int* rows = reinterpret_cast<int*>(out);
-  const int n = e.valid ? *sel_count(rows, row) : 0;
+  const int cnt = e.valid ? *sel_count(rows, row) : 0;
   const int* idx = sel_idx(rows, row);
 
-  put_head(buf, pmask + row * PARTNERS, e, lane, pos, yaw, vel, collided,
-           size, goal, aid, stat, nm);
+  put_head(buf, pmask == nullptr ? nullptr : pmask + row * PARTNERS, e, lane,
+           pos, yaw, vel, collided, size, goal, aid, stat, nm);
   __syncwarp();
   flush(buf, dst, HEAD / 4, lane);
   __syncwarp();
@@ -782,69 +712,60 @@ obs_step_kernel(float* out, int* __restrict__ pmask,
   const bool filler_id = !(knn && e.valid);
   for (int slot = lane; slot < ROADS_K; slot += 32) {
     bool id_neg = filler_id;
-    if (slot < n) {
+    if (slot < cnt) {
       const size_t r = sr + idx[slot];
       put_road_at(buf + ROAD_F * slot, r, e.x, e.y, e.c, e.s, e.yaw, rpos,
                   ryaw, rscale, retype, nm);
-      id_neg = rid[r] == -1;
+      if (rmask != nullptr) id_neg = rid[r] == -1;
     } else {
       put_road(buf + ROAD_F * slot, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0,
                nm);
     }
-    rmask[row * ROADS_K + slot] = id_neg ? 1 : 0;
+    if (rmask != nullptr) rmask[row * ROADS_K + slot] = id_neg ? 1 : 0;
   }
   __syncwarp();
   flush(buf, dst + HEAD, ROAD_BLOCK / 4, lane);
 }
 
-}  // namespace k6
-
-// norm: the 15 floats of Norm in its order.  times: n_times host ints.
-// Launches ceil(n_times / MAX_TIMES) times, each writing its rows of out.
-extern "C" int flat_obs_rows(float* out, const float* pos, const float* yaw,
-                             const float* vel, const int* collided,
-                             const float* size, const float* goal,
-                             const unsigned char* valid,
-                             const int* num_agents, const float* rpos,
-                             const float* ryaw, const float* rscale,
-                             const int* retype, const unsigned char* rvalid,
-                             const long long* w_idx, const long long* a_idx,
-                             int N, int W, int A, int R, const int* times,
-                             int n_times, const float* norm, void* stream) {
-  static_assert(sizeof(k5::Norm) == 15 * sizeof(float), "Norm is 15 floats");
-  k5::Norm nm;
-  memcpy(&nm, norm, sizeof(k5::Norm));
-  const int per = k5::MAX_TIMES;
-  for (int first = 0; first < n_times; first += per) {
-    k5::Times tt;
-    tt.n = n_times - first < per ? n_times - first : per;
-    for (int q = 0; q < tt.n; ++q) tt.t[q] = times[first + q];
-    const long long rows = (long long)tt.n * N;
-    const unsigned blocks = (unsigned)((rows + k5::WARPS - 1) / k5::WARPS);
-    k5::flat_obs_kernel<<<blocks, k5::WARPS * 32, 0, (cudaStream_t)stream>>>(
-        out + (size_t)first * N * k5::OBS_DIM, pos, yaw, vel, collided, size,
-        goal, valid, num_agents, rpos, ryaw, rscale, retype, rvalid, w_idx,
-        a_idx, N, W, A, R, tt, nm);
+// The launches of one entry: the time indices times[0, n_times) in chunks
+// of MAX_TIMES, each chunk's rows after the previous chunk's.
+template <class Launch>
+int each_chunk(const int* times, int n_times, Launch launch) {
+  for (int first = 0; first < n_times; first += MAX_TIMES) {
+    Times tt;
+    const int n = n_times - first < MAX_TIMES ? n_times - first : MAX_TIMES;
+    for (int q = 0; q < n; ++q) tt.t[q] = times[first + q];
+    launch(first, n, tt);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
+Norm norm_of(const float* norm) {
+  static_assert(sizeof(Norm) == 15 * sizeof(float), "Norm is 15 floats");
+  Norm nm;
+  memcpy(&nm, norm, sizeof(Norm));
+  return nm;
+}
+
+}  // namespace k6
+
 // K6's first launch: each row's road indices and their count, written into
-// out [N, 3368] (k6::sel_idx, k6::sel_count).  mode, per, w_idx, a_idx: the
-// egos (k6::Egos; unused pointers may be null).  One block per world where
-// mode < 2 and the world's roads fit in shared memory, else one warp per
-// row.
+// out [n_times * N, 3368] (k6::sel_idx, k6::sel_count).  pos, valid: the
+// states [T, W, A, 2] and the scene's [W, A]; mode, per, w_idx, a_idx: the
+// egos (k6::Egos; unused pointers may be null); times: n_times host ints
+// in [0, T); norm: the 15 floats of Norm in its order.  One block per
+// world and time where mode < 2 and the world's roads fit in shared
+// memory, else one warp per row.
 extern "C" int road_select(float* out, const float* pos,
                            const unsigned char* valid, const float* rpos,
                            const unsigned char* rvalid, const long long* w_idx,
                            const long long* a_idx, int mode, int per, int N,
-                           int W, int A, int R, int knn, const float* norm,
-                           void* stream) {
+                           int W, int A, int R, int knn, const int* times,
+                           int n_times, const float* norm, void* stream) {
   using namespace k6;
-  k5::Norm nm;
-  memcpy(&nm, norm, sizeof(k5::Norm));
+  const Norm nm = norm_of(norm);
   const Egos g{mode, per, w_idx, a_idx};
   const float scale = (float)BINS / nm.radius2;
   const size_t scratch = (size_t)SEL_WARPS * SCRATCH;
@@ -864,18 +785,24 @@ extern "C" int road_select(float* out, const float* pos,
       if (e != cudaSuccess) return (int)e;
       if (dev < 64) opted[dev] = true;
     }
-    road_select_kernel<true><<<W, SEL_WARPS * 32, staged, s>>>(
-        rows, pos, valid, rpos, rvalid, g, N, A, R, knn, nm, scale);
-  } else {
-    const unsigned blocks = (unsigned)((N + SEL_WARPS - 1) / SEL_WARPS);
-    road_select_kernel<false><<<blocks, SEL_WARPS * 32, scratch, s>>>(
-        rows, pos, valid, rpos, rvalid, g, N, A, R, knn, nm, scale);
+    return each_chunk(times, n_times, [&](int first, int n, Times tt) {
+      road_select_kernel<true><<<dim3(W, n), SEL_WARPS * 32, staged, s>>>(
+          rows + (size_t)first * N * OBS_DIM, pos, valid, rpos, rvalid, g, N,
+          W, A, R, knn, tt, nm, scale);
+    });
   }
-  return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((N + SEL_WARPS - 1) / SEL_WARPS);
+  return each_chunk(times, n_times, [&](int first, int n, Times tt) {
+    road_select_kernel<false><<<dim3(blocks, n), SEL_WARPS * 32, scratch, s>>>(
+        rows + (size_t)first * N * OBS_DIM, pos, valid, rpos, rvalid, g, N, W,
+        A, R, knn, tt, nm, scale);
+  });
 }
 
-// K6's second launch: out [N, 3368] float32, pmask [N, 127] int32, rmask
-// [N, 200] bool, from the selection road_select left in out.
+// K6's second launch: out [n_times * N, 3368] float32 from the selection
+// road_select left in out, and where pmask and rmask are not null, the
+// masks pmask [n_times * N, 127] int32 and rmask [n_times * N, 200] bool.
+// The states are stacked as road_select reads them, the times the same.
 extern "C" int obs_step(float* out, int* pmask, unsigned char* rmask,
                         const float* pos,
                         const float* yaw, const float* vel,
@@ -886,15 +813,19 @@ extern "C" int obs_step(float* out, int* pmask, unsigned char* rmask,
                         const float* ryaw, const float* rscale,
                         const int* retype, const int* rid,
                         const long long* w_idx, const long long* a_idx,
-                        int mode, int per, int N, int A, int R, int knn,
+                        int mode, int per, int N, int W, int A, int R,
+                        int knn, const int* times, int n_times,
                         const float* norm, void* stream) {
-  k5::Norm nm;
-  memcpy(&nm, norm, sizeof(k5::Norm));
-  const k6::Egos g{mode, per, w_idx, a_idx};
-  const unsigned blocks = (unsigned)((N + k5::WARPS - 1) / k5::WARPS);
-  k6::obs_step_kernel<<<blocks, k5::WARPS * 32, 0, (cudaStream_t)stream>>>(
-      out, pmask, rmask, pos, yaw, vel, collided, size, goal,
-      valid, aid, stat, num_agents, rpos, ryaw, rscale, retype, rid, g, N, A,
-      R, knn, nm);
-  return (int)cudaGetLastError();
+  using namespace k6;
+  const Norm nm = norm_of(norm);
+  const Egos g{mode, per, w_idx, a_idx};
+  const unsigned blocks = (unsigned)((N + WARPS - 1) / WARPS);
+  return each_chunk(times, n_times, [&](int first, int n, Times tt) {
+    const size_t r0 = (size_t)first * N;
+    obs_step_kernel<<<dim3(blocks, n), WARPS * 32, 0, (cudaStream_t)stream>>>(
+        out + r0 * OBS_DIM, pmask == nullptr ? nullptr : pmask + r0 * PARTNERS,
+        rmask == nullptr ? nullptr : rmask + r0 * ROADS_K, pos, yaw, vel,
+        collided, size, goal, valid, aid, stat, num_agents, rpos, ryaw,
+        rscale, retype, rid, g, N, W, A, R, knn, tt, nm);
+  });
 }

@@ -74,7 +74,8 @@ def flat_observation(
     the partner mask equal bit for bit, the road block and its mask too
     but where two of an ego's roads lie at exactly the same distance.
     Otherwise, and on every CPU tensor, the plain code
-    (``env/observation.py``)."""
+    (``env/observation.py``).  PPO's recompute of stored states chooses
+    by the same predicate (``flat_obs_kernel.flat_obs_rows``)."""
     if (state.pos.is_cuda and not split
             and flat_obs_kernel.step_supports(spec, params)):
         return flat_obs_kernel.flat_obs_step(scene, state, params, spec,
@@ -524,7 +525,7 @@ class GPUDriveTorchEnv:
 
     def world_done(self) -> torch.Tensor:
         """[W] bool: every created agent of the world is done."""
-        return ((self.state.done != 0) | ~self.scene.agents.valid).all(dim=1)
+        return stepmod.world_done(self.scene, self.state)
 
     # ----- log playback / experts ---------------------------------------
 

@@ -10,9 +10,10 @@ state, and nothing in the rollout or the update reads a device value on the
 host.  ``PPO`` holds the policy (an ``nn.Module``) and its
 ``torch.optim.Adam``; the JAX package's ``make_ppo_funcs`` closures become
 its methods.  With ``remat_obs`` the update recomputes each minibatch's
-observations from the stored pre-step states: all its time steps in one
-launch of kernel K5 where ``flat_obs_kernel.supports`` the spec, else one
-``flat_observation`` per time step (env/flat_obs_kernel.py).
+observations from the stored pre-step states through
+``flat_obs_kernel.flat_obs_rows``: all its time steps in one launch pair of
+kernel K6 where K6 covers the spec, else one ``flat_observation`` per time
+step (env/flat_obs_kernel.py).
 
 Random streams.  Actions are drawn from ``EnvCarry.rng``, a
 ``torch.Generator`` on the env's device; the minibatch order comes from
@@ -56,7 +57,7 @@ import torch
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core import step as stepmod
 from gpudrive_lab_torch.core.types import Params, Scene, SimState
-from gpudrive_lab_torch.env import flat_obs_kernel as k5
+from gpudrive_lab_torch.env import flat_obs_kernel
 from gpudrive_lab_torch.env.env_torch import (
     ObsSpec,
     flat_observation,
@@ -375,7 +376,7 @@ class PPO:
                                     reward_weights, wts_mid)
             done = (state.done != 0).to(torch.float32)
             # auto-reset finished worlds (reference: env_puffer.py:265-386)
-            world_done = ((state.done != 0) | ~valid).all(dim=1)
+            world_done = stepmod.world_done(scene, state)
             n_ctrl = controlled.sum(dim=1).clamp(min=1)
 
             def frac(x):
@@ -513,11 +514,9 @@ class PPO:
             # pre-step states (only this row block's agents when row-sliced)
             if rows:
                 cidx = tuple(c[rstart:rstart + rows] for c in cidx)
-            recompute = (k5.flat_obs_rows if k5.supports(self.spec,
-                                                         self.params)
-                         else k5.flat_obs_rows_plain)
-            mb["obs"] = recompute(scene, traj.env_state, t_idx, cidx,
-                                  self.params, self.spec, reward_weights)
+            mb["obs"] = flat_obs_kernel.flat_obs_rows(
+                scene, traj.env_state, t_idx, cidx, self.params, self.spec,
+                reward_weights)
         elif cfg.policy_dtype == "float32":
             mb["obs"] = _map_obs(lambda o: o.to(torch.float32), mb["obs"])
         # else the store goes to the bf16 policy as it is: its Dense layers

@@ -204,7 +204,7 @@ class RnnPPO:
         reward = shaped_rewards(scene, state, self.reward_type,
                                 reward_weights, wts_mid)
         done = (state.done != 0).to(torch.float32)
-        world_done = ((state.done != 0) | ~valid).all(dim=1)
+        world_done = stepmod.world_done(scene, state)
         n_ctrl = controlled.sum(dim=1).clamp(min=1)
 
         def frac(x):

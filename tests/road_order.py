@@ -1,5 +1,6 @@
 """The road order kernel K6 writes, computed with PyTorch ops, for the tests
-of ``env/flat_obs_kernel.py`` on the CPU and on the card.
+of ``env/flat_obs_kernel.py`` on the CPU and on the card, and the ego
+selection as flat pairs in ``flat_observation``'s row order.
 
 K6 keeps each ego's roads in the observation radius: KNEAREST the 200 of
 least d2, nearest first, ties to the lower road index; LINEAR the first 200
@@ -14,7 +15,22 @@ import torch
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_torch.core import observations as obsmod
 from gpudrive_lab_torch.core.types import RoadObsAlgorithm
-from gpudrive_lab_torch.env import flat_obs_kernel
+
+
+def ego_pairs(ego_idx, W: int, A: int, device) -> tuple:
+    """The ego selection as flat (w_idx [N], a_idx [N]) int64 pairs in the
+    row order of ``flat_observation``'s output: all agent rows (None), the
+    [W, C] per-world slots, or the flat pairs themselves."""
+    if isinstance(ego_idx, tuple):
+        w, a = ego_idx
+        return (w.to(torch.int64).contiguous(),
+                a.to(torch.int64).contiguous())
+    if ego_idx is None:
+        a = torch.arange(A, device=device).repeat(W)
+        return torch.arange(W, device=device).repeat_interleave(A), a
+    C_ = ego_idx.shape[1]
+    return (torch.arange(W, device=device).repeat_interleave(C_),
+            ego_idx.reshape(-1).to(torch.int64).contiguous())
 
 
 def nearest_first(scene, state, params, ego_idx):
@@ -25,7 +41,7 @@ def nearest_first(scene, state, params, ego_idx):
     K = C.MAX_AGENT_MAP_OBS
     W, A = state.yaw.shape
     dev = state.pos.device
-    w, a = flat_obs_kernel.ego_pairs(ego_idx, W, A, dev)
+    w, a = ego_pairs(ego_idx, W, A, dev)
     delta = scene.roads.pos[w, :, 0:2] - state.pos[w, a][:, None, :]
     d2 = (delta * delta).sum(-1)  # [N, R], as agent_map_observations
     within = (scene.roads.valid[w] & (d2 <= params.observation_radius ** 2)
@@ -48,7 +64,7 @@ def road_rows_at(scene, state, params, ego_idx, idx, count):
     rows)."""
     W, A = state.yaw.shape
     dev = state.pos.device
-    w, a = flat_obs_kernel.ego_pairs(ego_idx, W, A, dev)
+    w, a = ego_pairs(ego_idx, W, A, dev)
     rows, _, _ = obsmod._gather_road_features(
         obsmod._packed_road_columns(scene.roads), idx, state.pos[w, a],
         state.yaw[w, a], w)

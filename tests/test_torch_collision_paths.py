@@ -53,6 +53,7 @@ from gpudrive_lab_torch.scene.large_map import large_map_scene
 from torch_parity import (
     POOL_SCENES,
     ROOT,
+    assert_jax_native,
     assert_obs_match,
     jax_params,
     scene_to_jax,
@@ -81,6 +82,7 @@ def _assert_grids_equal(got, want):
 def worlds():
     """The compiled worlds of tests/data and a pool_v3 slice, from both
     packages' compilers (the same C++ source: equal arrays)."""
+    assert_jax_native()
     paths = TEST_SCENES + POOL_SCENES[::64]
     tw = [tcompiler.compile_world(p, BASE, frozenset()) for p in paths]
     jw = [jcompiler.compile_world(p, jax_params(BASE), frozenset())
@@ -140,6 +142,7 @@ def test_large_map_grid_matches_jax(large_roads):
 
 @pytest.fixture(scope="module")
 def step_scenes():
+    assert_jax_native()
     dense = build_scene(STEP_SCENES, BASE, device="cpu")
     grid = build_scene(STEP_SCENES, GRID, device="cpu")
     assert dense.grid is None and grid.grid is not None
@@ -319,6 +322,7 @@ def test_env_with_grid_matches_jax():
     """EnvConfig(use_collision_grid=True): reset, random steps, a swap to
     another batch and more steps; obs, rewards, dones and infos as the JAX
     env's, the grid carried through the swap."""
+    assert_jax_native()
     kw = dict(SLICE_CONFIG, use_collision_grid=True)
     first, second = POOL_SCENES[40:42], TEST_SCENES[:2]
     env = GPUDriveTorchEnv(EnvConfig(**kw), first, device="cpu")

@@ -1146,11 +1146,11 @@ def test_sharded_learners_on_card_match_one_process(dev):
                 assert n["K3-bf16"] > 0 and n["K4-bf16"] > 0
 
 
-# ---- K5: the update's observation recompute --------------------------------
+# ---- K6 over stacked times: the update's observation recompute -----------
 
 # the benchmark's train cell (benchmark/configs/ppo_late_fusion.json)
-K5_PPO = dict(rollout_len=32, update_epochs=4, num_minibatches=4,
-              compact=4416, compact_mode="flat", fused_embed=True)
+TRAIN_PPO = dict(rollout_len=32, update_epochs=4, num_minibatches=4,
+                 compact=4416, compact_mode="flat", fused_embed=True)
 
 
 def _bits_equal(got, want, what):
@@ -1162,10 +1162,11 @@ def _bits_equal(got, want, what):
                     f"{float((got - want).abs().nan_to_num(1e30).max())}")
 
 
-@pytest.fixture(scope="module")
-def k5_pool():
-    """The 512 pool worlds with LINEAR roads on the card, the train cell's
-    trainer and one 32-step rollout of it."""
+@pytest.fixture(scope="module", params=["linear", "k_nearest_roadpoints"])
+def train_pool(request):
+    """The 512 pool worlds on the card, the train cell's trainer with roads
+    selected either way (the cell's LINEAR, and KNEAREST) and one 32-step
+    rollout of it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
     from gpudrive_lab_torch.ppo.ppo import PPOConfig
@@ -1174,63 +1175,95 @@ def k5_pool():
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = slice_env(pool_scene_paths(root), device="cuda",
-                    road_obs_algorithm="linear", obs_radius=50.0)
-    ppo, carry, fresh, train_fn = build_trainer(env, PPOConfig(**K5_PPO),
+                    road_obs_algorithm=request.param, obs_radius=50.0)
+    ppo, carry, fresh, train_fn = build_trainer(env, PPOConfig(**TRAIN_PPO),
                                                 seed=0)
     carry, traj = ppo.rollout(env.scene, carry, fresh, env.reward_weights)
     return env, ppo, carry, fresh, train_fn, traj
 
 
-def _k5_twice(scene, states, t_idx, ego, params):
-    """K5 launched twice into memory that held NaN: the launch count, both
-    launches' bits and no float left unwritten.  Returns K5's rows and its
-    plain version's on the card."""
-    from gpudrive_lab_torch.env import flat_obs_kernel as k5
+def _rows_check(scene, states, t_idx, ego, params, what: str) -> None:
+    """K6's rows path (``flat_obs_rows``) launched twice into memory that
+    held NaN: one launch pair per 32 time indices a call, both calls' bits
+    equal, no float left unwritten.  Against ``flat_obs_rows_plain`` on the
+    card: LINEAR bit for bit; KNEAREST bit for bit but in the rows where
+    two of the ego's 201 nearest roads share a d2, and every row bit for
+    bit against the plain code with its road rows at K6's rule's indices
+    (road_order.py)."""
+    from unittest import mock
+
+    from gpudrive_lab_torch.core import observations as obsmod
+    from gpudrive_lab_torch.core.types import RoadObsAlgorithm
+    from gpudrive_lab_torch.env import flat_obs_kernel as k6
     from gpudrive_lab_torch.env.env_torch import ObsSpec
 
+    import road_order
+
     W, A = scene.agents.valid.shape
-    n = len(k5.ego_pairs(ego, W, A, "cuda")[0])
-    # the caching allocator hands this block to K5's output next
-    junk = torch.full((len(t_idx) * n, k5.OBS_DIM), float("nan"),
+    n = len(road_order.ego_pairs(ego, W, A, "cuda")[0])
+    # the caching allocator hands this block to K6's output next
+    junk = torch.full((len(t_idx) * n, k6.OBS_DIM), float("nan"),
                       device="cuda")
     del junk
     args = (scene, states, t_idx, ego, params, ObsSpec(), None)
-    before = k5.flat_obs_rows.launches
-    got = k5.flat_obs_rows(*args)
-    again = k5.flat_obs_rows(*args)
+    before = k6.flat_obs_step.launches
+    got = k6.flat_obs_rows(*args)
+    again = k6.flat_obs_rows(*args)
     torch.cuda.synchronize()
-    assert k5.flat_obs_rows.launches == before + 2
-    assert not bool(got.isnan().any())
-    _bits_equal(got, again, "two launches")
-    return got, k5.flat_obs_rows_plain(*args)
+    pairs = -(-len(t_idx) // k6.MAX_TIMES)
+    assert k6.flat_obs_step.launches == before + 2 * pairs, what
+    assert got.shape == (len(t_idx) * n, k6.OBS_DIM), what
+    assert not bool(got.isnan().any()), what
+    _bits_equal(got, again, f"{what}: two launches")
+    want = k6.flat_obs_rows_plain(*args)
+    if params.road_obs_algorithm == RoadObsAlgorithm.LINEAR:
+        _bits_equal(got, want, what)
+        return
+    ties, rule = [], []
+    for t in t_idx:
+        state = k6.state_at(states, t)
+        idx, count, tie = road_order.nearest_first(scene, state, params, ego)
+        rows = road_order.road_rows_at(scene, state, params, ego, idx, count)
+        with mock.patch.object(obsmod, "agent_map_observations",
+                               lambda *a: rows):
+            rule.append(k6.flat_obs_rows_plain(
+                scene, states, [t], ego, params, ObsSpec(), None))
+        ties.append(tie)
+    ties = torch.cat(ties)
+    same = _row_bits_equal(got, want)
+    assert bool((same | ties).all()), (
+        f"{what}: {int((~same & ~ties).sum())} rows differ")
+    _bits_equal(got, torch.cat(rule), f"{what}: K6's road order")
+    print(f"[K6 rows] {what}: {len(got)} rows, {int(ties.sum())} with two "
+          "of the 201 nearest at one d2")
 
 
-def test_k5_matches_flat_observation_on_the_pool(k5_pool):
-    """4,416 flat rows x 8 time steps of the train cell: bit for bit."""
-    env, ppo, _, _, _, traj = k5_pool
-    got, want = _k5_twice(env.scene, traj.env_state,
-                          [5, 0, 31, 12, 7, 20, 3, 26],
-                          ppo.ctrl_slots(env.scene), env.params)
-    assert got.shape == (8 * 4416, 3368)
-    _bits_equal(got, want, "pool, flat rows")
+def test_k6_rows_match_plain_on_the_pool(train_pool):
+    """4,416 flat rows x 8 time steps of the train cell."""
+    env, ppo, _, _, _, traj = train_pool
+    _rows_check(env.scene, traj.env_state, [5, 0, 31, 12, 7, 20, 3, 26],
+                ppo.ctrl_slots(env.scene), env.params,
+                f"pool, {env.params.road_obs_algorithm.name}, flat rows")
 
 
-def test_k5_matches_flat_observation_for_world_and_dense_rows(k5_pool):
-    env, _, _, _, _, traj = k5_pool
+def test_k6_rows_match_plain_for_world_and_dense_rows(train_pool):
+    """[W, 9] slots at 33 time indices (two launch pairs) and every agent
+    row at 2."""
+    env, _, _, _, _, traj = train_pool
     W, A = env.scene.agents.valid.shape
     g = torch.Generator().manual_seed(0)
     world = torch.stack([torch.randperm(A, generator=g)[:9]
                          for _ in range(W)]).cuda()
-    for what, ego, t_idx in (("world", world, [9, 1, 30]),
+    for what, ego, t_idx in (("world", world, list(range(31, -1, -1)) + [9]),
                              ("dense", None, [17, 4])):
-        got, want = _k5_twice(env.scene, traj.env_state, t_idx, ego,
-                              env.params)
-        _bits_equal(got, want, f"pool, {what} rows")
+        _rows_check(env.scene, traj.env_state, t_idx, ego, env.params,
+                    f"pool, {env.params.road_obs_algorithm.name}, {what}")
 
 
-def test_k5_matches_flat_observation_on_a_large_map(dev):
+@pytest.mark.parametrize("roads", ["LINEAR", "KNEAREST"])
+def test_k6_rows_match_plain_on_a_large_map(dev, roads):
     """10,240-road worlds, where egos see more than 200 roads in the
-    radius: every agent row at 3 time steps, bit for bit."""
+    radius: every agent row at 3 time steps."""
     import dataclasses
 
     from gpudrive_lab_torch.core.types import (
@@ -1253,23 +1286,57 @@ def test_k5_matches_flat_observation_on_a_large_map(dev):
     stacked = SimState(**{f.name: torch.stack([getattr(s, f.name)
                                                for s in states])
                           for f in dataclasses.fields(SimState)})
-    params = Params(road_obs_algorithm=RoadObsAlgorithm.LINEAR,
+    params = Params(road_obs_algorithm=RoadObsAlgorithm[roads],
                     observation_radius=50.0)
     d = scene.roads.pos[:, None, :, :2] - state.pos[:, :, None]
     assert int(((d * d).sum(-1) <= 2500.0).sum(-1).max()) > 200
-    got, want = _k5_twice(scene, stacked, [2, 0, 1], None, params)
-    _bits_equal(got, want, "large map, dense rows")
+    _rows_check(scene, stacked, [2, 0, 1], None, params,
+                f"large map, {roads}, dense rows")
 
 
-def test_k5_launches_once_a_minibatch(k5_pool):
-    """One iteration of the train cell's settings: 16 launches."""
-    from gpudrive_lab_torch.env import flat_obs_kernel as k5
+def test_k6_rows_launch_once_a_minibatch(train_pool):
+    """One iteration of the train cell's settings: a launch pair per
+    rollout step (32) and per minibatch of the update (16)."""
+    from gpudrive_lab_torch.env import flat_obs_kernel as k6
 
-    env, _, carry, fresh, train_fn, _ = k5_pool
-    before = k5.flat_obs_rows.launches
-    train_fn(env.scene, carry, fresh, env.reward_weights)
+    env, ppo, carry, fresh, train_fn, _ = train_pool
+    rw = env.reward_weights
+    before = k6.flat_obs_step.launches
+    carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
     torch.cuda.synchronize()
-    assert k5.flat_obs_rows.launches - before == 16
+    assert k6.flat_obs_step.launches - before == 32
+    batch = ppo.prepare(env.scene, carry, traj, rw)
+    before = k6.flat_obs_step.launches
+    ppo.learn(env.scene, batch, traj, rw)
+    torch.cuda.synchronize()
+    assert k6.flat_obs_step.launches - before == 16
+
+
+def test_update_recomputes_the_rollouts_rows(train_pool, monkeypatch):
+    """Every minibatch's recomputed rows equal, bit for bit, the rows the
+    rollout's policy acted on (``flat_observation`` of each stored state),
+    with either road selection: one kernel for both."""
+    from gpudrive_lab_torch.env import flat_obs_kernel as k6
+    from gpudrive_lab_torch.env.env_torch import flat_observation
+
+    env, ppo, carry, fresh, _, _ = train_pool
+    rows = k6.flat_obs_rows
+    checked = []
+
+    def check(scene, states, t_idx, ego, params, spec, rw):
+        got = rows(scene, states, t_idx, ego, params, spec, rw)
+        want = torch.cat([flat_observation(
+            scene, k6.state_at(states, t), params, spec, rw, ego)[0]
+            .reshape(-1, k6.OBS_DIM) for t in t_idx])
+        _bits_equal(got, want, f"minibatch {len(checked)}")
+        checked.append(len(t_idx))
+        return got
+
+    monkeypatch.setattr(k6, "flat_obs_rows", check)
+    rw = env.reward_weights
+    carry, traj = ppo.rollout(env.scene, carry, fresh, rw)
+    ppo.learn(env.scene, ppo.prepare(env.scene, carry, traj, rw), traj, rw)
+    assert checked == [8] * 16
 
 
 # ---- K6: flat_observation of one state in two launches ---------------------
@@ -1321,7 +1388,7 @@ def _k6_check(scene, state, params, ego, what: str) -> int:
     import road_order
 
     W, A = scene.agents.valid.shape
-    n = len(k6.ego_pairs(ego, W, A, "cuda")[0])
+    n = len(road_order.ego_pairs(ego, W, A, "cuda")[0])
     # the caching allocator hands these blocks to K6's outputs next
     junk = [torch.full((n, k6.OBS_DIM), float("nan"), device="cuda"),
             torch.full((n, 127), 7, dtype=torch.int32, device="cuda"),

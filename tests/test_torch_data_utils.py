@@ -33,7 +33,7 @@ from gpudrive_lab_torch.data_utils import synthetic_womd as sw
 from gpudrive_lab_torch.data_utils import tfrecord as ttf
 from gpudrive_lab_torch.data_utils import waymo_converter as twc
 from gpudrive_lab_torch.data_utils.waymo_protos import scenario_lite_pb2 as tpb
-from torch_parity import ROOT, jax_params
+from torch_parity import ROOT, assert_jax_native, jax_params
 
 PROTO = os.path.join(ROOT, "gpudrive_lab_torch", "data_utils", "waymo_protos",
                      "scenario_lite.proto")
@@ -364,6 +364,7 @@ def test_ingest_chain_to_expert_replay(tmp_path):
     tags = tdb.process_directory(str(out), 10, num_workers=2)
     assert tags["total_agents"] > 0
     paths = sorted(str(p) for p in out.iterdir())
+    assert_jax_native()
     native.reset_fallbacks()
     env = GPUDriveTorchEnv(EnvConfig(), paths, device="cpu")
     assert native.fallbacks() == 0

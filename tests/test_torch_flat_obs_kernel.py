@@ -1,18 +1,18 @@
-"""Kernels K5's and K6's wrappers (``env/flat_obs_kernel.py``) on the CPU.
+"""Kernel K6's wrappers (``env/flat_obs_kernel.py``) on the CPU.
 
-The CPU takes K5's plain version: one ``flat_observation`` per time step,
-written into one output.  These tests hold it to the stacked per-step
-observations for every ego selection and for the specs K5 leaves to it,
-pin the specs K5 covers and the update's choice between the two, and check
-that PPO's update gives the same bits through the wrapper as through the
-per-step loop it replaced.  For K6 they hold its plain versions to
-``flat_observation`` for both road selections and every ego selection,
-keep CPU tensors away from the kernel, pin the specs K6 covers and the
-dispatch inside ``flat_observation``, and hold ``agent_map_observations``
-to the road order K6 writes (``road_order.py``: nearest first, ties to the
-lower index), also where more than 200 roads lie in the radius.  The
-kernels themselves run in tests/test_torch_cuda.py and chip_smoke.py on
-the card.
+On the CPU the rows path, ``flat_obs_rows``, takes its plain version: one
+``flat_observation`` per time step, written into one output.  These tests
+hold it to the stacked per-step observations for every ego selection, both
+road selections and the specs K6 leaves, pin the specs K6 covers and the
+two places that choose by them (``flat_observation`` for one state,
+``flat_obs_rows`` for stacked times: the kernel wherever the predicate
+holds on CUDA tensors, the plain version everywhere else, never the kernel
+on CPU tensors), check that PPO's update recomputes through
+``flat_obs_rows`` alone and gives the same bits as the per-step loop, and
+hold ``agent_map_observations`` to the road order K6 writes
+(``road_order.py``: nearest first, ties to the lower index), also where
+more than 200 roads lie in the radius.  The kernel itself runs in
+tests/test_torch_cuda.py and chip_smoke.py on the card.
 """
 
 import dataclasses
@@ -37,6 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_IDX = [2, 0, 3]  # out of order, as a minibatch draws them
 LINEAR = Params(road_obs_algorithm=RoadObsAlgorithm.LINEAR,
                 observation_radius=50.0)
+KNEAREST = dataclasses.replace(LINEAR,
+                               road_obs_algorithm=RoadObsAlgorithm.KNEAREST)
 
 
 @pytest.fixture(scope="module")
@@ -75,6 +77,26 @@ def selections(env, flat):
             "rows": tuple(c[8:32] for c in flat)}
 
 
+def fake_cuda(monkeypatch):
+    """Every tensor reports is_cuda; K6's launches and the plain rows are
+    recorded instead of run (the plain rows still run and are returned)."""
+    calls = {"k6": 0, "plain": 0}
+    plain = k5.flat_obs_rows_plain
+
+    def k6(*args, **kw):
+        calls["k6"] += 1
+        return "k6", None, None
+
+    def counted(*args):
+        calls["plain"] += 1
+        return plain(*args)
+
+    monkeypatch.setattr(k5, "_k6", k6)
+    monkeypatch.setattr(k5, "flat_obs_rows_plain", counted)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    return calls
+
+
 def stacked(env, states, t_idx, ego_idx, params=None, spec=ObsSpec()):
     obs = [flat_observation(env.scene, k5.state_at(states, t),
                             params or env.params, spec, env.reward_weights,
@@ -94,19 +116,24 @@ def test_plain_rows_equal_the_stacked_observations(env, traj, sel):
 
 
 @pytest.mark.parametrize("spec,knearest", [
-    (ObsSpec(), True), (ObsSpec(norm_obs=False), False),
-    (ObsSpec(reward_conditioned=True), False),
+    (ObsSpec(road_map_obs=False), True), (ObsSpec(norm_obs=False), False),
+    (ObsSpec(reward_conditioned=True), True),
     (ObsSpec(partner_obs=False), False)])
-def test_plain_rows_cover_the_specs_k5_leaves(env, traj, spec, knearest):
+def test_rows_take_the_plain_version_for_the_specs_k6_leaves(
+        env, traj, spec, knearest, monkeypatch):
+    """Also on CUDA tensors (faked): the rows path takes the plain
+    version, whose rows equal the stacked observations."""
     tr, flat = traj
     params = env.params
     if knearest:
         params = dataclasses.replace(
             params, road_obs_algorithm=RoadObsAlgorithm.KNEAREST)
-    assert not k5.supports(spec, params)
-    got = k5.flat_obs_rows_plain(env.scene, tr.env_state, T_IDX, flat,
-                                 params, spec, env.reward_weights)
+    assert not k5.step_supports(spec, params)
     want = stacked(env, tr.env_state, T_IDX, flat, params, spec)
+    calls = fake_cuda(monkeypatch)
+    got = k5.flat_obs_rows(env.scene, tr.env_state, T_IDX, flat, params,
+                           spec, env.reward_weights)
+    assert calls == {"k6": 0, "plain": 1}
     assert got.shape == (len(T_IDX) * len(flat[0]), spec.obs_dim)
     assert torch.equal(got, want)
 
@@ -121,18 +148,35 @@ def test_state_at_slices_every_field(traj):
 
 @pytest.mark.parametrize("spec,params,ok", [
     (ObsSpec(), LINEAR, True),
-    (ObsSpec(), dataclasses.replace(
-        LINEAR, road_obs_algorithm=RoadObsAlgorithm.KNEAREST), False),
+    (ObsSpec(), KNEAREST, True),
     (ObsSpec(reward_conditioned=True), LINEAR, False),
     (ObsSpec(norm_obs=False), LINEAR, False),
     (ObsSpec(partner_obs=False), LINEAR, False),
 ])
-def test_supports_the_classic_linear_spec_only(spec, params, ok):
-    assert k5.supports(spec, params) is ok
+def test_rows_take_k6_where_step_supports_holds(env, traj, spec, params, ok,
+                                               monkeypatch):
+    """The rows path's dispatch: on CPU tensors always the plain version;
+    on CUDA tensors (faked) K6 wherever ``step_supports`` holds, either
+    road selection, else the plain version."""
+    tr, flat = traj
+    assert k5.step_supports(spec, params) is ok
+    args = (env.scene, tr.env_state, T_IDX, flat, params, spec,
+            env.reward_weights)
+    monkeypatch.setattr(k5, "_lib", lambda: pytest.fail("the CPU reached "
+                                                        "the CUDA library"))
+    assert torch.is_tensor(k5.flat_obs_rows(*args))
+    calls = fake_cuda(monkeypatch)
+    got = k5.flat_obs_rows(*args)
+    assert calls == ({"k6": 1, "plain": 0} if ok else {"k6": 0, "plain": 1})
+    assert (got == "k6") is ok
 
 
-def test_the_benchmark_spec_is_supported(env):
-    assert k5.supports(ObsSpec(), env.params)
+def test_the_benchmark_spec_takes_k6(env):
+    """The train cell's spec and roads (LINEAR), and the sim cells'
+    (KNEAREST)."""
+    assert k5.step_supports(ObsSpec(), env.params)
+    assert env.params.road_obs_algorithm == RoadObsAlgorithm.LINEAR
+    assert k5.step_supports(ObsSpec(), KNEAREST)
 
 
 def old_recompute(scene, states, t_idx, ego_idx, params, spec, weights):
@@ -173,11 +217,13 @@ def test_learn_gives_the_same_bits_as_the_per_step_loop(env, cfg,
 
 
 @pytest.mark.parametrize("roads", ["linear", "k_nearest_roadpoints"])
-def test_learn_takes_k5_where_supports_holds(env, roads, monkeypatch):
+def test_learn_recomputes_through_flat_obs_rows(env, roads, monkeypatch):
+    """Either road selection: one ``flat_obs_rows`` call a minibatch, which
+    on CPU tensors runs the plain version and never the kernel."""
     if roads != "linear":
         env = slice_env(pool_scene_paths(ROOT)[40:43], device="cpu",
                         agent_bucket="auto", road_obs_algorithm=roads)
-    calls = {"k5": 0, "plain": 0}
+    calls = {"rows": 0, "plain": 0}
 
     def count(name, fn):
         def counted(*args):
@@ -185,27 +231,26 @@ def test_learn_takes_k5_where_supports_holds(env, roads, monkeypatch):
             return fn(*args)
         return counted
 
-    # on the CPU the wrapper is the plain version: count the two entries
-    plain = k5.flat_obs_rows_plain
-    monkeypatch.setattr(k5, "flat_obs_rows", count("k5", plain))
-    monkeypatch.setattr(k5, "flat_obs_rows_plain", count("plain", plain))
+    monkeypatch.setattr(k5, "flat_obs_rows", count("rows", k5.flat_obs_rows))
+    monkeypatch.setattr(k5, "flat_obs_rows_plain",
+                        count("plain", k5.flat_obs_rows_plain))
+    monkeypatch.setattr(k5, "_k6", lambda *a: pytest.fail("K6 on the CPU"))
     ppo, carry, fresh, train = trainer(env)
     train(env.scene, carry, fresh, env.reward_weights)
     n_mb = ppo.config.update_epochs * ppo.config.num_minibatches
-    assert calls == ({"k5": n_mb, "plain": 0} if roads == "linear"
-                     else {"k5": 0, "plain": n_mb})
+    assert calls == {"rows": n_mb, "plain": n_mb}
 
 
 def test_ego_pairs_follow_flat_observations_row_order():
     W, A = 3, 5
     slots = torch.tensor([[1, 0], [4, 2], [0, 3]])
-    w, a = k5.ego_pairs(slots, W, A, "cpu")
+    w, a = road_order.ego_pairs(slots, W, A, "cpu")
     assert w.tolist() == [0, 0, 1, 1, 2, 2]
     assert a.tolist() == [1, 0, 4, 2, 0, 3]
-    w, a = k5.ego_pairs(None, W, A, "cpu")
+    w, a = road_order.ego_pairs(None, W, A, "cpu")
     assert (w * A + a).tolist() == list(range(W * A))
     pair = (torch.tensor([2, 0], dtype=torch.int32), torch.tensor([1, 4]))
-    w, a = k5.ego_pairs(pair, W, A, "cpu")
+    w, a = road_order.ego_pairs(pair, W, A, "cpu")
     assert w.dtype == a.dtype == torch.int64
     assert w.tolist() == [2, 0] and a.tolist() == [1, 4]
 
@@ -213,8 +258,6 @@ def test_ego_pairs_follow_flat_observations_row_order():
 # ---- K6: flat_observation of one state in two launches --------------------
 
 ROADS = ["k_nearest_roadpoints", "linear"]
-KNEAREST = dataclasses.replace(LINEAR,
-                               road_obs_algorithm=RoadObsAlgorithm.KNEAREST)
 
 
 @pytest.fixture(scope="module", params=ROADS)
@@ -244,21 +287,29 @@ def k6_selections(env):
     return {"dense": None, "world": world, "flat": flat}
 
 
+def one_time(state: SimState) -> SimState:
+    """One state stacked along a leading [1]."""
+    return SimState(**{f.name: getattr(state, f.name)[None]
+                       for f in dataclasses.fields(SimState)})
+
+
 @pytest.mark.parametrize("sel", ["dense", "world", "flat"])
 def test_step_plain_equals_flat_observation(data_env, sel):
+    """The step's plain version, the rows path at T = 1 on the CPU, gives
+    ``flat_observation``'s rows for either road selection."""
     env = data_env
     ego = k6_selections(env)[sel]
-    got = k5.flat_obs_step(env.scene, env.state, env.params, ObsSpec(), ego)
+    got = k5.flat_obs_rows(env.scene, one_time(env.state), [0], ego,
+                           env.params, ObsSpec(), env.reward_weights)
     want = flat_observation(env.scene, env.state, env.params, ObsSpec(),
-                            env.reward_weights, ego)
-    assert len(got) == len(want) == 3
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == w.dtype
-        assert torch.equal(g, w)
-    assert got[0].shape[-1] == k5.OBS_DIM
+                            env.reward_weights, ego)[0]
+    assert got.shape == (want[..., 0].numel(), k5.OBS_DIM)
+    assert torch.equal(got, want.reshape(got.shape))
 
 
 def test_cpu_tensors_never_reach_k6(data_env, monkeypatch):
+    """flat_observation and the rows path take the plain code on the CPU;
+    the kernel wrapper refuses CPU tensors."""
     def refuse():
         raise AssertionError("a CPU call reached the CUDA library")
 
@@ -267,8 +318,11 @@ def test_cpu_tensors_never_reach_k6(data_env, monkeypatch):
     for ego in k6_selections(data_env).values():
         flat_observation(data_env.scene, data_env.state, data_env.params,
                          ObsSpec(), data_env.reward_weights, ego)
-        k5.flat_obs_step(data_env.scene, data_env.state, data_env.params,
-                         ObsSpec(), ego)
+        k5.flat_obs_rows(data_env.scene, one_time(data_env.state), [0], ego,
+                         data_env.params, ObsSpec(), data_env.reward_weights)
+        with pytest.raises(ValueError, match="CUDA"):
+            k5.flat_obs_step(data_env.scene, data_env.state,
+                             data_env.params, ObsSpec(), ego)
     assert k5.flat_obs_step.launches == before == 0
 
 
@@ -284,7 +338,6 @@ def test_cpu_tensors_never_reach_k6(data_env, monkeypatch):
 def test_step_supports_the_classic_spec_either_road_selection(spec, params,
                                                               ok):
     assert k5.step_supports(spec, params) is ok
-    assert k5.supports(spec, params) is (ok and params is LINEAR)
 
 
 def test_k6_refuses_the_specs_it_leaves(data_env):

@@ -18,7 +18,13 @@ from gpudrive_lab_tpu.scene import compiler as jcompiler
 from gpudrive_lab_torch import native
 from gpudrive_lab_torch.core.types import DynamicsModel, Params
 from gpudrive_lab_torch.scene import compiler as tcompiler
-from torch_parity import POOL_SCENES, ROOT, SYNTHETIC_SCENE, jax_params
+from torch_parity import (
+    POOL_SCENES,
+    ROOT,
+    SYNTHETIC_SCENE,
+    assert_jax_native,
+    jax_params,
+)
 
 PARAM_SETS = [
     Params(polyline_reduction_threshold=0.0, ignore_non_vehicles=True),
@@ -72,7 +78,7 @@ def assert_worlds_close(nat, py):
 def _native_on():
     """Both native paths present: neither package falls back silently."""
     assert native.enabled(), "GPUDRIVE_TORCH_NO_NATIVE is set"
-    assert jnative.available(), "the JAX package's native compiler is missing"
+    assert_jax_native()
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)

@@ -139,6 +139,15 @@ def test_partial_reset_matches_jax():
     sel = stepmod.select_worlds(mask, fresh, state)
     for f in dataclasses.fields(sel):
         assert torch.equal(getattr(sel, f.name), getattr(got, f.name)), f.name
+    # the mask the auto-resets take: the JAX package's world-done predicate
+    # (ppo.py), world 1 with every agent done
+    done = dataclasses.replace(state, done=torch.where(
+        torch.arange(3)[:, None] == 1, 1, state.done))
+    jdone = state_to_jax(done)
+    want = np.asarray(jax.numpy.all((jdone.done != 0)
+                                    | ~jscene.agents.valid, axis=1))
+    assert stepmod.world_done(scene, done).tolist() == want.tolist()
+    assert want.tolist() == [False, True, False]
 
 
 EXPERT_PARAMS = Params(

@@ -5,20 +5,34 @@ and a Scene or SimState crosses between the packages as numpy arrays.  The
 JAX package is used as it is.  Where a test needs both packages to compile
 scenes with the same Python path, ``python_scene_compiler`` switches off
 both native compilers.
+
+Both packages' native compilers build the same C++ source and give the same
+bits; their Python paths differ from it in the last bit of some road yaws
+and grid origins.  The JAX package's loader has g++ write its library in
+place and falls back to the Python path for the rest of the process when a
+load fails, which it does when several test workers build at once and one
+loads a half-written file.  So importing this module makes the worker hold
+that library, loaded (``hold_jax_native``), and the tests that hold compile
+outputs of the two packages equal bit for bit first call
+``assert_jax_native``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import fcntl
 import glob
+import hashlib
 import os
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gpudrive_lab_tpu import native as jnative
 from gpudrive_lab_tpu.core import types as jtypes
 from gpudrive_lab_torch import constants as C
 from gpudrive_lab_tpu.scene import compiler as jcompiler
@@ -36,10 +50,59 @@ POOL_SCENES = sorted(glob.glob(os.path.join(ROOT, "data", "pool_v3", "*.json")))
 AGENT_AGENT = os.path.join(ROOT, "tests", "data", "agent_agent_collision.json")
 PARTNER_DIM = (C.MAX_AGENTS - 1) * C.PARTNER_FEAT_DIM
 ROAD_EDGE = os.path.join(ROOT, "tests", "data", "agent_road_edge_collision.json")
+# written only by hold_jax_native
+JAX_NATIVE_DIR = os.path.join(ROOT, "tests", ".jax_native")
 
 # The suite runs in several worker processes at once; torch's default of one
 # thread per core in each of them oversubscribes the host several times over.
 torch.set_num_threads(min(torch.get_num_threads(), 2))
+
+
+def hold_jax_native() -> None:
+    """Build the JAX package's native scene compiler into JAX_NATIVE_DIR,
+    under the name its ``_build`` gives it, through a temporary file and
+    ``os.replace`` (one worker at a time, under a file lock), point
+    ``GPUDRIVE_TPU_NATIVE_CACHE`` there, and where this process has
+    fallen back to the Python path, reset the loader, load again and drop
+    the worlds compiled meanwhile.  A failed build leaves the fallback for
+    ``assert_jax_native`` to report."""
+    src = jnative._SRC
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = os.path.join(JAX_NATIVE_DIR, f"libscene_compiler_{tag}.so")
+    os.makedirs(JAX_NATIVE_DIR, exist_ok=True)
+    with open(os.path.join(JAX_NATIVE_DIR, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(["g++", "-O3", "-std=c++17", "-shared",
+                                "-fPIC", str(src), "-o", tmp], check=True,
+                               capture_output=True, timeout=300)
+            except (subprocess.CalledProcessError, OSError,
+                    subprocess.TimeoutExpired):
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                return
+            os.replace(tmp, out)
+    os.environ["GPUDRIVE_TPU_NATIVE_CACHE"] = JAX_NATIVE_DIR
+    if jnative._LIB is None:
+        jnative._TRIED = False
+        jnative._load()
+        jcompiler.compile_world.cache_clear()
+
+
+def assert_jax_native() -> None:
+    """The JAX package compiles scenes with its native library, as the
+    port does: else the two differ in the last bit of some road yaws."""
+    hold_jax_native()
+    assert jnative.available(), (
+        "the JAX package's native scene compiler is not loaded in this "
+        "worker (a failed build or a load of a half-written library makes "
+        "it fall back to its Python path, whose road yaws differ from the "
+        "native ones in the last bit)")
+
+
+hold_jax_native()
 
 
 @contextlib.contextmanager
